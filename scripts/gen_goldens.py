@@ -1,10 +1,9 @@
 """Generate small CPU golden renders for every bench scene.
 
-BASELINE.md's fidelity bar is "SSIM >= 0.99 vs reference frames"; with no
-GPU in this environment the goldens are CPU (f32-exact) renders of THIS
-renderer, so bench-time SSIM is a per-scene cross-backend (TPU-vs-CPU,
-bf16-MXU-vs-f32) fidelity check — absolute radiometry is pinned externally
-by the closed-form oracles in tests/test_radiometric_oracle.py.
+The goldens are CPU renders of THIS renderer, so SSIM against them (bench.py,
+chip_smoke.py) is a per-scene cross-backend (GPU-vs-CPU) fidelity check —
+absolute radiometry is pinned externally by the closed-form oracles in
+tests/test_radiometric_oracle.py.
 
 Run on CPU:  python scripts/gen_goldens.py [scene ...]
 """

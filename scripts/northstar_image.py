@@ -1,4 +1,4 @@
-"""Emit the north-star kitchen PNG from the render checkpoint — no TPU
+"""Emit the north-star kitchen PNG from the render checkpoint — no accelerator
 needed (the accumulator in .northstar_kitchen.npz is already the mean
 radiance; tonemap runs on CPU). Lets a budget-bounded northstar.py run
 publish its partially-converged showcase image at any point.

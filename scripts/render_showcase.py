@@ -1,4 +1,4 @@
-"""Render the showcase images (images/) with the current renderer on TPU."""
+"""Render the showcase images (images/) with the current renderer on the default device."""
 import sys, time
 import numpy as np
 sys.path.insert(0, ".")

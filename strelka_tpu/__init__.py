@@ -1,12 +1,13 @@
-"""strelka_tpu — a TPU-native progressive physically-based path-tracing framework.
+"""strelka_tpu — a progressive physically-based path-tracing framework in JAX.
 
 A ground-up re-design of the capabilities of the Strelka renderer
-(reference: arhix52/Strelka, C++/OptiX/Metal) for TPU hardware:
+(reference: arhix52/Strelka, C++/OptiX/Metal):
 
-* device compute path is JAX/XLA + Pallas (wavefront path tracing over a
-  pixel-sharded ``jax.sharding.Mesh``),
+* device compute path is JAX/XLA (wavefront path tracing, optionally
+  pixel-sharded over a ``jax.sharding.Mesh`` of several cards),
 * host orchestration is Python (scene model, loaders, settings, CLI),
-* hot host-side preprocessing (LBVH build) has a native C++ path.
+* hot host-side preprocessing (BVH build, USD crate decoding) has a native
+  C++ path.
 
 Layer map (mirrors reference layers, see SURVEY.md §1):
   L0 device kernels   -> strelka_tpu.ops        (sampler, intersect, bsdf, ...)
@@ -24,21 +25,28 @@ __version__ = "0.1.0"
 
 import os as _os
 
+# persistent XLA compilation cache of this checkout (a fixed path: the path
+# is part of the cache key, so a directory that moves never hits)
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
 
 def _enable_compilation_cache() -> None:
     """Persistent XLA compilation cache (the analog of the driver-side OptiX
-    pipeline cache): makes repeated launch configs compile once per machine."""
-    try:
-        import jax
+    pipeline cache): repeated launch configs compile once per checkout.
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and no
+    directory is set here; otherwise the cache is CACHE_DIR."""
+    import jax
 
-        cache_dir = _os.environ.get(
-            "STRELKA_XLA_CACHE", _os.path.expanduser("~/.cache/strelka_tpu_xla")
-        )
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # noqa: BLE001 — cache is best-effort
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    try:
+        _os.makedirs(CACHE_DIR, exist_ok=True)
+    except OSError:  # read-only checkout: run without a persistent cache
+        return
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 
 _enable_compilation_cache()

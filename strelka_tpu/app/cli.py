@@ -56,8 +56,12 @@ def load_scene(scene_path: str) -> Scene:
     return scene
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser("strelka", description="TPU-native path tracer")
+def main(argv=None, stats_out: dict | None = None) -> int:
+    """Run the CLI. stats_out, when given, is filled with the run's
+    measurements: scene_build_s, frame_s (seconds per frame, each ending in
+    block_until_ready; frame 0 includes scene build and compilation), spp,
+    image ([H,W,3] tonemapped floats) and render (the Render object)."""
+    parser = argparse.ArgumentParser("strelka", description="JAX wavefront path tracer")
     parser.add_argument("-s", "--scene", default="", help="scene path (gltf/glb/usda or builtin://name)")
     parser.add_argument("-i", "--iteration", type=int, default=-1, help="iteration to capture")
     parser.add_argument("-t", "--spp-total", type=int, default=64)
@@ -126,6 +130,7 @@ def main(argv=None) -> int:
 
     anim_time = scene.animations[0].start if (args.play_animation and scene.animations) else 0.0
     iteration = 0
+    frame_s = []
     stats = FrameStats()
     start_total = time.perf_counter()
     import contextlib
@@ -139,8 +144,9 @@ def main(argv=None) -> int:
                 anim_time += 1.0 / 24.0
             spp_before = ctx.subframe_index
             render.render(buf)
-            img = buf.map()
+            buf.device().block_until_ready()
             dt = time.perf_counter() - t0
+            frame_s.append(dt)
             rays = args.width * args.height * max(ctx.subframe_index - spp_before, 0) * 2 * args.depth
             stats.add_frame(dt, rays)
             # title-bar equivalent (app/main.cpp:399-403)
@@ -166,6 +172,15 @@ def main(argv=None) -> int:
 
     if args.checkpoint:
         render.save_checkpoint(args.checkpoint)
+    img = buf.map()
+    if stats_out is not None:
+        stats_out.update(
+            scene_build_s=render.last_scene_build_s,
+            frame_s=frame_s,
+            spp=ctx.subframe_index,
+            image=np.asarray(img)[..., :3],
+            render=render,
+        )
     if args.need_screenshot or args.output:
         out = args.output
         if not out:

@@ -23,7 +23,9 @@ from strelka_tpu.settings import SharedContext, make_default_settings
 from strelka_tpu.utils.image import write_png
 
 
-def main(argv=None) -> int:
+def main(argv=None, stats_out: dict | None = None) -> int:
+    """Run the USD runner. stats_out, when given, is filled like
+    strelka_tpu.app.cli.main's (scene_build_s, frame_s, spp, image, render)."""
     parser = argparse.ArgumentParser("usd_runner", description="USD progressive renderer")
     parser.add_argument("-s", "--scene", required=True, help="USD stage (.usda | .usdc | .usd)")
     parser.add_argument("-i", "--iteration", type=int, default=-1)
@@ -78,19 +80,29 @@ def main(argv=None) -> int:
             )
 
     iteration = 0
+    frame_s = []
     total_t0 = time.perf_counter()
     while True:
         t0 = time.perf_counter()
         render_pass.execute(buf)
-        img = buf.map()
-        dt = (time.perf_counter() - t0) * 1e3
-        print(f"Strelka {dt:.1f} ms [{ctx.subframe_index} spp]", flush=True)
+        buf.device().block_until_ready()
+        frame_s.append(time.perf_counter() - t0)
+        print(f"Strelka {frame_s[-1] * 1e3:.1f} ms [{ctx.subframe_index} spp]", flush=True)
         iteration += 1
         if ctx.subframe_index >= args.spp_total or (0 < args.iteration <= iteration):
             break
     log.info(
         "Rendered {} spp in {:.2f}s total", ctx.subframe_index, time.perf_counter() - total_t0
     )
+    img = buf.map()
+    if stats_out is not None:
+        stats_out.update(
+            scene_build_s=delegate.render.last_scene_build_s,
+            frame_s=frame_s,
+            spp=ctx.subframe_index,
+            image=np.asarray(img)[..., :3],
+            render=delegate.render,
+        )
 
     if args.need_screenshot or args.output:
         out = args.output

@@ -1,9 +1,9 @@
 """WebDisplay — browser-based interactive viewer + settings panel.
 
 The reference's display layer is a GLFW/OpenGL window with an ImGui debug
-panel (src/display/Display.cpp:68-239, src/display/glfw/*). A TPU render
-host is headless by construction, so the windowing capability is delivered
-the way TPU-era tooling does it: an embedded HTTP server streaming the
+panel (src/display/Display.cpp:68-239, src/display/glfw/*). An accelerator
+host is often headless, so the windowing capability is delivered as an
+embedded HTTP server streaming the
 framebuffer to any browser, with the SAME debug-panel knobs
 (``SettingsBinding``) editable live and the same FPS-style camera keys
 (src/app/main.cpp:16-248) forwarded to the ``InputHandler``.

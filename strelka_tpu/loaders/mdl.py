@@ -2,7 +2,7 @@
 
 The reference compiles MDL source through the NVIDIA MDL SDK (neuray ->
 CLASS_COMPILATION -> PTX, src/materialmanager/mdlMaterialCompiler.cpp +
-mdlPtxCodeGen.cpp). The TPU build's material destination is the analytic
+mdlPtxCodeGen.cpp). This build's material destination is the analytic
 BSDF table, so what it needs from a .mdl FILE is: which material model
 (by name) and the declared parameter DEFAULTS (the arg-block initial
 values). This module extracts `export material Name(params...)` signatures
@@ -235,7 +235,7 @@ def load_mdl_module(file: str, search_paths: List[str]) -> Optional[MdlModule]:
 # Material-body folding: evaluate the df expression tree onto uber-BSDF rows.
 #
 # The reference JIT-compiles arbitrary MDL bodies through the SDK
-# (mdlPtxCodeGen.cpp); the TPU build's material destination is the analytic
+# (mdlPtxCodeGen.cpp); this build's material destination is the analytic
 # uber-BSDF table, so layered/weighted df expressions are FOLDED analytically:
 # each elemental bsdf contributes a weighted lobe, layerers combine child
 # weights, and the lobe totals map onto (diffuse_color, roughness, metallic,

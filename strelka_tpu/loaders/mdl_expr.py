@@ -5,7 +5,7 @@ computed parameter defaults, nested function calls, math intrinsics all
 evaluate at class-compilation time with constant folding
 (`/root/reference/src/materialmanager/mdlMaterialCompiler.cpp:93-115`
 CLASS_COMPILATION + fold options; codegen `mdlPtxCodeGen.cpp:63-131`).
-The TPU build's material destination is the analytic uber-BSDF parameter
+This build's material destination is the analytic uber-BSDF parameter
 table, so the equivalent capability is a load-time CONSTANT-EXPRESSION
 interpreter: evaluate computed defaults (`float r = base * 0.5 + 0.1`),
 user-defined module functions (`= my_tint(warm)`), `math::*` intrinsics,

@@ -2,7 +2,7 @@
 
 The reference translates MaterialX documents to MDL source via the MaterialX
 SDK (src/materialmanager/mtlxMdlCodeGen.cpp:215-257) and compiles that with
-the MDL toolchain. On TPU the material destination is the dense parameter
+the MDL toolchain. Here the material destination is the dense parameter
 table (strelka_tpu.materials), so the translation target is the SAME
 parameter set — we parse the mtlx XML directly (stdlib xml.etree; the
 environment has no MaterialX SDK) and find the single renderable

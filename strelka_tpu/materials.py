@@ -1,11 +1,11 @@
-"""Material system — the TPU-native equivalent of the MDL pipeline (layer L2).
+"""Material system — the JAX equivalent of the MDL pipeline (layer L2).
 
 The reference compiles MDL/MaterialX source to per-material PTX through the
 MDL SDK (src/materialmanager/: createModule -> createMaterialInstance ->
 compileMaterial -> generateTargetCode, materialmanager.cpp:524-609) and binds
 each material's argument block to an OptiX hit group.
 
-On TPU, runtime codegen per material would defeat XLA: instead, materials
+Runtime codegen per material would defeat XLA: instead, materials
 compile to ROWS OF A DENSE SoA PARAMETER TABLE consumed by a fixed,
 jit-traceable uber-BSDF (strelka_tpu.ops.bsdf). The capability surface is the
 same — N materials, runtime-settable parameters, textures — with the

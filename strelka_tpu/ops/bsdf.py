@@ -1,14 +1,14 @@
-"""JAX-traceable BSDF library — the TPU replacement for MDL-generated code.
+"""JAX-traceable BSDF library — the replacement for MDL-generated code.
 
 The reference JIT-compiles each MDL material to PTX exposing mdlcode_init /
 mdlcode_sample / mdlcode_evaluate (OptixRender_radiance_closest_hit.cu:31-33,
 called at :502-571). Here the same contract is a fixed set of analytic BSDFs
 switched by a per-material type id, evaluated branchlessly across the whole
-wavefront (every lobe is cheap VPU math; masked selects beat divergence).
+wavefront (every lobe is cheap elementwise math; masked selects beat
+divergence).
 
 All vectors/colors are component-major Vec3 (three [N] arrays) — see
-ops/vec.py for why ([N,3] minor-dim-3 layouts run at ~2% TPU lane
-utilization).
+ops/vec.py.
 
 Contract parity with mi::neuraylib (target_code_types.h):
   * sample() consumes 4 uniforms (xi), returns k2, pdf, bsdf_over_pdf and an
@@ -265,7 +265,7 @@ def bsdf_evaluate(
     """mdlcode_evaluate equivalent: returns f*cos split diffuse/glossy + pdf.
 
     enable_hair: STATIC flag — scenes without hair materials skip the fiber
-    lobes entirely (pow/sqrt transcendentals cost real VPU time when traced
+    lobes entirely (pow/sqrt transcendentals cost real time when traced
     for every lane)."""
     k1l = _to_local(frame, k1)
     k2l = _to_local(frame, k2)

@@ -1,12 +1,12 @@
 """BVH: host-side binned-SAH build + device stack traversal.
 
-The TPU-native replacement for OptiX GAS/IAS hardware acceleration structures
+The replacement for OptiX GAS/IAS hardware acceleration structures
 (OptixRender.cpp:218-496). Design decisions (vs a literal port):
 
   * SINGLE-LEVEL BVH over the world-space flattened triangle soup (instances
     baked at build, render/device_scene.py) instead of two-level GAS+IAS —
-    on TPU a second indirection level doubles gather latency for no win at
-    the scene sizes Strelka targets; instance semantics live host-side.
+    a second indirection level doubles gather latency for no win at the
+    scene sizes Strelka targets; instance semantics live host-side.
   * Triangles are REORDERED into leaf-contiguous order at build so a leaf is
     a (start, count) range — no per-primitive indirection on device.
   * Build is binned SAH (16 bins, leaf <= MAX_LEAF tris) on the host: the
@@ -17,7 +17,7 @@ The TPU-native replacement for OptiX GAS/IAS hardware acceleration structures
     iteration pops one node per ray: internal nodes test the two child AABBs
     (slab test) and push hits near-first; leaves test <= MAX_LEAF triangles
     with an unrolled Moller-Trumbore. Inactive lanes no-op — masked SIMD is
-    the TPU analog of SIMT divergence.
+    the wavefront analog of SIMT divergence.
 
 Node layout (SoA, [num_nodes]):
   bb_min, bb_max: [n,3] f32 — node bounds
@@ -54,10 +54,10 @@ class ThreadedBvh(NamedTuple):
     continues at i+1 (DFS first child); skipping (AABB miss) or finishing a
     leaf jumps to skip[i]. skip[last] == n (the termination sentinel).
     This removes the per-ray stack (and its scatter traffic) entirely —
-    the idiomatic XLA/TPU formulation: per-step work is a handful of [N]
+    the idiomatic XLA formulation: per-step work is a handful of [N]
     gathers + elementwise math; the hard step bound makes the loop immune
     to malformed trees (a clamped out-of-bounds stack write in a stacked
-    traversal can otherwise spin a TPU forever).
+    traversal can otherwise spin forever).
 
     bb_min/bb_max: [n,3]; skip: [n] i32; start/count: [n] i32 (count==0
     internal). Leaf triangle ranges index the reordered triangle arrays.
@@ -314,17 +314,20 @@ def intersect_bvh(
     active: jnp.ndarray | None = None,
     any_hit: bool = False,
     exclude: jnp.ndarray | None = None,
+    with_steps: bool = False,
 ):
     """Lockstep stackless traversal over the threaded BVH.
 
     Per-ray state is one DFS node index (+ best hit); each step is a few [N]
-    gathers + elementwise VPU math, no scatters. The step counter bounds the
+    gathers + elementwise math, no scatters. The step counter bounds the
     loop at num_nodes+1 (DFS position is strictly increasing), so the loop
     terminates even on malformed input. Returns (t, prim, u, v); prim indexes
     the REORDERED triangle arrays, -1 on miss. any_hit=True retires lanes on
     the first accepted hit (occlusion semantics). exclude: [N] i32 origin
     primitive id rejected exactly (same self-intersection guard as the
-    pallas kernels), -1/None = none.
+    brute-force sweep), -1/None = none. with_steps=True also returns the
+    number of while-loop iterations the sweep took (the slowest lane's
+    visited-node count).
     """
     n = origins.shape[0]
     n_nodes = bvh.skip.shape[0]
@@ -375,6 +378,8 @@ def intersect_bvh(
 
     state = (node, best_t, best_prim, best_u, best_v, jnp.int32(0))
     state = jax.lax.while_loop(cond, body, state)
-    _, best_t, best_prim, best_u, best_v, _ = state
+    _, best_t, best_prim, best_u, best_v, steps = state
     best_t = jnp.where(best_prim >= 0, best_t, _BIG)
+    if with_steps:
+        return best_t, best_prim, best_u, best_v, steps
     return best_t, best_prim, best_u, best_v

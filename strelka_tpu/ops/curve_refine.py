@@ -2,11 +2,11 @@
 
 The reference uses OptiX's built-in ROUND_CUBIC_BSPLINE intersector
 (`/root/reference/src/render/optix/OptixRender.cpp:554-560`), which solves
-the exact swept-sphere envelope. The TPU broad phase flattens each cubic to
+the exact swept-sphere envelope. The broad phase flattens each cubic to
 CURVE_SUBDIV round cones (ops/curves.py:84) — silhouettes and thin-strand
 self-shadowing are chord-approximate. This module refines the winning
 candidate to the EXACT envelope with a few Newton iterations in per-lane
-VPU math (no gathers beyond one [N]-row control-point fetch), closing the
+elementwise math (no gathers beyond one [N]-row control-point fetch), closing the
 approximation without more cones.
 
 Envelope equations for a sphere of radius r(u) swept along C(u)
@@ -72,7 +72,7 @@ def refine_curve_hit(
 
     ctrl/weights are the WINNING segment's control data already gathered per
     lane ([N] rows). Pure elementwise jnp — XLA fuses it into the shade
-    epilogue; no Pallas needed."""
+    epilogue."""
     p0, p1, p2, p3 = (c if isinstance(c, Vec3) else Vec3(c[:, 0], c[:, 1], c[:, 2]) for c in ctrl)
     w0, w1, w2, w3 = weights
 

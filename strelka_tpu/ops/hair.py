@@ -1,4 +1,4 @@
-"""Chiang-style hair fiber BSDF (R/TT/TRT + residual), TPU-vectorized.
+"""Chiang-style hair fiber BSDF (R/TT/TRT + residual), wavefront-vectorized.
 
 The reference's hair path compiles MDL ``df::chiang_hair_bsdf`` (selected at
 mdlPtxCodeGen.cpp:143-158 when the material's hair expression is present;
@@ -80,7 +80,7 @@ def _mp(cos_ti, cos_to, sin_ti, sin_to, v):
     """Longitudinal scattering lobe M_p (normalized over the sphere).
 
     Both branches are evaluated with CLAMPED variance so the untaken lane
-    never produces inf/nan (nan poisons jnp.where on TPU).
+    never produces inf/nan (nan poisons jnp.where gradients and canaries).
     """
     v_dir = jnp.maximum(v, 0.1)
     a_d = cos_ti * cos_to / v_dir

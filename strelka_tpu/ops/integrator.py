@@ -1,4 +1,4 @@
-"""Wavefront path-tracing integrator — the TPU replacement for the OptiX
+"""Wavefront path-tracing integrator — the replacement for the OptiX
 megakernel (__raygen__rg, OptixRender.cu:80-248 + __closesthit__radiance,
 OptixRender_radiance_closest_hit.cu:456-606).
 
@@ -7,7 +7,7 @@ advance in lockstep through a statically-unrolled bounce loop; branch
 divergence becomes masked selects; each bounce issues one closest-hit sweep
 (radiance ray, mask PRIMARY) and one any-hit sweep (NEE shadow ray, mask
 SHADOW). All 3-vectors/colors are component-major Vec3 ([N] per component,
-ops/vec.py) — [N,3] layouts run at ~2% TPU lane utilization.
+ops/vec.py).
 
 Reference quirks intentionally preserved for image parity:
   * NEE radiance includes cos(N,L) AND the MDL-style evaluate() also folds
@@ -43,15 +43,6 @@ from strelka_tpu.render.device_scene import (
     RAY_MASK_SHADOW,
     DeviceScene,
 )
-
-import os as _os
-
-from strelka_tpu import tuned as _tuned
-
-# perf-bisection toggles (scripts/bisect_probe.py) — read once at import
-_NO_EMISSION = _os.environ.get("STRELKA_NO_EMISSION") == "1"
-_NO_CUTOUT = _os.environ.get("STRELKA_NO_CUTOUT") == "1"
-_NO_TEX = _os.environ.get("STRELKA_NO_TEX") == "1"  # perf-attribution A/B only
 
 Dim = S.SampleDimension
 
@@ -128,40 +119,17 @@ def _oct_decode24(code: jnp.ndarray) -> Vec3:
     return V.normalize(Vec3(x, y, z))
 
 
-def _gather_surface(scene: DeviceScene, hit: Hit, inside, ray_o=None, ray_d=None):
+def _gather_surface(scene: DeviceScene, hit: Hit, inside):
     """fillTriangleGeomData (cu:365-421): interpolate attributes at the hit.
 
-    ONE fat row-gather from attr_table per hit (scalar gathers are ~100x
-    slower on TPU). Returns (position, uv, frame, material_id, light_id).
-
-    When ray_o/ray_d are given, the barycentrics are recomputed HERE from
-    the v0/e1/e2 columns of the already-gathered attr rows (hit.u/v are
-    ignored) — this kills the dispatch-side recompute_barycentrics pass
-    whose [T,3] gathers cost ~2.2 ms each in layout shuffles (12/launch).
+    ONE fat row-gather from attr_table per hit (instead of one gather per
+    attribute). Returns (position, uv, frame, material_id, light_id,
+    uv_density_log2, rows).
     """
     prim = jnp.maximum(hit.prim, 0)
-    from strelka_tpu.ops.pallas_gather import gather_rows_t_auto
-
-    # [ATTR_COLS(+joined), N]: MXU one-hot contraction for VMEM-sized scenes (emits the
-    # component-major layout directly, no transpose), else gather+transpose
-    rows = gather_rows_t_auto(scene.attr_table, prim, getattr(scene, "use_pallas", False))
-    if ray_o is not None:
-        v0r = Vec3(rows[0], rows[1], rows[2])
-        e1r = Vec3(rows[3], rows[4], rows[5])
-        e2r = Vec3(rows[6], rows[7], rows[8])
-        pvec = V.cross(ray_d, e2r)
-        det = V.dot(e1r, pvec)
-        inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
-        tvec = ray_o - v0r
-        wu = V.dot(tvec, pvec) * inv_det
-        qvec = V.cross(tvec, e1r)
-        wv = V.dot(ray_d, qvec) * inv_det
-        miss = hit.prim < 0
-        wu = jnp.where(miss, 0.0, wu)
-        wv = jnp.where(miss, 0.0, wv)
-    else:
-        wu = hit.u
-        wv = hit.v
+    rows = V.gather_rows_t(scene.attr_table, prim)  # [ATTR_JOINED, N]
+    wu = hit.u
+    wv = hit.v
     w0 = 1.0 - wu - wv
     from strelka_tpu.render.device_scene import ATTR_N, ATTR_T, ATTR_UV, ATTR_MAT, ATTR_LIGHT
 
@@ -172,7 +140,7 @@ def _gather_surface(scene: DeviceScene, hit: Hit, inside, ray_o=None, ray_d=None
     position = v0 + e1 * wu + e2 * wv
     # normals/tangents ride as 12:12 octahedral 24-bit codes (packed attr
     # layout, device_scene.py — the reference's 10:10:12 packed vertex
-    # equivalent); decode is a handful of VPU ops on [N]
+    # equivalent)
     n0d, n1d, n2d = (_oct_decode24(rows[ATTR_N + i]) for i in range(3))
     t0d, t1d, t2d = (_oct_decode24(rows[ATTR_T + i]) for i in range(3))
     normal = V.normalize(n0d * w0 + n1d * wu + n2d * wv)
@@ -225,10 +193,8 @@ def _material_from_rows(rows):
 
 
 def _gather_material_by_id(scene: DeviceScene, mid):
-    """Returns (SurfaceParams, mat_rows [N,24]) from one fat row-gather."""
-    from strelka_tpu.ops.pallas_gather import gather_rows_t_auto
-
-    rows = gather_rows_t_auto(scene.mat_table, mid, getattr(scene, "use_pallas", False))
+    """Returns (SurfaceParams, mat_rows [24, N]) from one fat row-gather."""
+    rows = V.gather_rows_t(scene.mat_table, mid)
     return _material_from_rows(rows)
 
 
@@ -271,11 +237,7 @@ def _gather_light(scene: DeviceScene, light_id) -> LS.LightParams:
         n = lid.shape[0]
         rows = [jnp.broadcast_to(scene.light_table[0, c], (n,)) for c in range(20)]
     else:
-        from strelka_tpu.ops.pallas_gather import gather_rows_t_auto
-
-        rows = gather_rows_t_auto(
-            scene.light_table, lid, getattr(scene, "use_pallas", False)
-        )
+        rows = V.gather_rows_t(scene.light_table, lid)
     c3 = lambda a: Vec3(rows[a], rows[a + 1], rows[a + 2])
     return LS.LightParams(
         p0=c3(0),
@@ -307,11 +269,10 @@ def _apply_textures(
     transform's scale compresses/stretches the footprint, so its log2 is
     added per-material.
 
-    tex_rnd: callable slot -> 3 x [N] f32 uniforms. When given (the TPU
-    default), every filtered lookup is ONE-texel stochastic trilinear
-    (textures.sample_trilinear_stochastic): same expectation as the exact
-    filter, 8x fewer per-lane HBM gathers — the gathers are ~1/3 of a
-    textured launch (kitchen A/B: 3091 vs 2086 ms with textures off).
+    tex_rnd: callable slot -> 3 x [N] f32 uniforms. When given (the
+    integrator's default), every filtered lookup is ONE-texel stochastic
+    trilinear (textures.sample_trilinear_stochastic): same expectation as
+    the exact filter, 8x fewer per-lane texel gathers.
     """
     from strelka_tpu.textures import (
         sample_bilinear,
@@ -402,43 +363,11 @@ def _spread3(v):
     return v
 
 
-def _nearest_block_along_ray(scene: DeviceScene, position: Vec3, direction: Vec3):
-    """Per-ray id of the first superblock the ray can enter (slab tnear
-    argmin over valid blocks), nsb for rays that hit nothing. One [N, nsb]
-    elementwise pass — the per-RAY analogue of the per-tile order table."""
-    from strelka_tpu.ops.pallas_intersect import super_bounds_jnp
-
-    sb = super_bounds_jnp(scene.tri_bounds, scene.kernel_super)  # [8, nsb]
-    nsb = sb.shape[1]
-    tnear = jnp.zeros((position.x.shape[0], 1), jnp.float32)
-    tfar = jnp.full_like(tnear, 1e30)
-    valid = jnp.ones((1, nsb), bool)
-    for c, (pc, dc) in enumerate(
-        ((position.x, direction.x), (position.y, direction.y), (position.z, direction.z))
-    ):
-        inv = 1.0 / jnp.where(jnp.abs(dc) > 1e-20, dc, 1e-20)
-        lo = sb[c][None, :]
-        hi = sb[3 + c][None, :]
-        t0 = (lo - pc[:, None]) * inv[:, None]
-        t1 = (hi - pc[:, None]) * inv[:, None]
-        tnear = jnp.maximum(tnear, jnp.minimum(t0, t1))
-        tfar = jnp.minimum(tfar, jnp.maximum(t0, t1))
-        valid = valid & (lo <= hi)  # inverted pad blocks never match
-    cand = (tnear <= tfar) & (tfar >= 0.0) & valid
-    tn = jnp.where(cand, tnear, 1e30)
-    best = tn.min(axis=1, keepdims=True)
-    blk = jnp.where(
-        (tn == best) & (best < 1e30), jnp.arange(nsb, dtype=jnp.int32)[None, :], nsb
-    )
-    return jnp.min(blk, axis=1).astype(jnp.uint32), jnp.uint32(nsb)
-
-
 def _ray_sort_key(scene: DeviceScene, position: Vec3, direction: Vec3):
     """Spatial sort key: 24-bit position Morton (static world bounds) with
-    the direction octant in the low 3 bits. Rays sorted by this key form
-    tiles with tight origin locality, which is what the intersector's
-    per-tile block culling and near-to-far sweep need to fire on bounce rays
-    (the reference gets this scheduling for free from the OptiX RT cores)."""
+    the direction octant in the low 3 bits. Rays sorted by this key are
+    neighbours in space and direction, so neighbouring lanes walk similar
+    parts of the acceleration structure."""
     lo, hi = scene.world_lo, scene.world_hi
 
     def q(c, lo_c, hi_c):
@@ -451,80 +380,13 @@ def _ray_sort_key(scene: DeviceScene, position: Vec3, direction: Vec3):
     mz = _spread3(q(position.z, lo[2], hi[2]))
     octant = V.octant(direction).astype(jnp.uint32)
     morton = mx | (my << 1) | (mz << 2)  # 24 bits (8/axis)
-    if _os.environ.get("STRELKA_KEY_OCTANT_MAJOR") == "1":
-        # direction-octant-major: tiles become direction-pure, so blocks
-        # behind a tile fail every slab test (halves+ the touched set)
-        return (octant << 24) | morton
-    if _tuned.get_bool("key_nearest_block", False) and getattr(
-        scene, "block_cents", None
-    ) is not None:
-        # schedule-pure tiles: group lanes by the FIRST superblock their ray
-        # can enter (origin AND direction coherence — per-ray analogue of
-        # the tile order table), coarse position Morton as the minor key so
-        # same-block groups stay origin-local for the near-to-far sweep.
-        blk, _nsb = _nearest_block_along_ray(scene, position, direction)
-        return (jnp.minimum(blk, 1023) << 14) | (morton >> 10)
-    mid = int(_os.environ.get("STRELKA_KEY_OCT_MID", "0"))
-    if mid:
-        # octant-MID key: coarse position major (top 24-mid Morton bits),
-        # then octant, then fine position. Tiles stay position-coherent at
-        # the coarse-cell level AND become direction-pure, so the per-tile
-        # sub-block OR-guards can reject blocks behind the whole tile —
-        # the middle ground between the falsified octant-major (NOTES #17)
-        # and the current position-only key (octant in noise-level low bits).
-        lo_bits = morton & jnp.uint32((1 << mid) - 1)
-        return ((morton >> mid) << (mid + 3)) | (octant << mid) | lo_bits
     return (morton << 3) | octant
 
 
-def _group_perm(key, n_groups: int):
-    """Stable counting-sort permutation for a small-integer key (no argsort:
-    n_groups cumsums + one scatter). Returns (perm, pos): perm gathers rows
-    into grouped order; pos maps original lane -> grouped slot."""
-    n = key.shape[0]
-    pos = jnp.zeros(n, jnp.int32)
-    base = jnp.int32(0)
-    idx = jnp.arange(n, dtype=jnp.int32)
-    for g in range(n_groups):
-        m = key == g
-        r = jnp.cumsum(m.astype(jnp.int32))
-        pos = jnp.where(m, base + r - 1, pos)
-        base = base + r[n - 1]
-    perm = jnp.zeros(n, jnp.int32).at[pos].set(idx)
-    return perm, pos
-
-
-def _shadow_grouped_any(scene, org, to_light, tmin, tmax, ray_mask, exclude, light_id, num_lights):
-    """Occlusion sweep with shadow rays grouped by their sampled light.
-
-    A bounce wavefront is position-Morton sorted, but each lane samples a
-    random light, so a ray tile mixes L direction cones and its slab tests
-    touch the union of L corridors. A stable per-light partition (cheap
-    counting sort; position order preserved within groups) gives every tile
-    ONE corridor -> the work-list W matrix is ~L x sparser. Two packed row
-    gathers + L cumsums amortize against multi-hundred-ms any sweeps on
-    Kitchen-class scenes."""
-    from strelka_tpu.ops.intersect import _gather_ray_rows, intersect_any
-
-    perm, pos = _group_perm(light_id, num_lights)
-    o2, d2, tn2, tx2, ex2 = _gather_ray_rows(perm, org, to_light, tmin, tmax, exclude)
-    occ = intersect_any(scene, o2, d2, tn2, tx2, ray_mask, exclude=ex2)
-    return occ.astype(jnp.int32)[:, None][pos][:, 0] != 0
-
-
-def _sort_wavefront(scene, origin, direction, alive, state_f32, state_bits,
-                    compact_only=False):
+def _sort_wavefront(scene, origin, direction, alive, state_f32, state_bits):
     """Reorder the whole wavefront by spatial key; DEAD lanes get the max key
-    so they cluster into tail tiles that the intersector culls in one slab
-    test each — stream compaction without any queue machinery."""
-    n = alive.shape[0]
-    if compact_only:
-        # stable alive-first partition: no argsort, alive lanes keep their
-        # existing (Z-order) coherence, dead lanes cluster into tail tiles
-        from strelka_tpu.ops.pallas_intersect import _partition_perm_flat
-
-        perm, _ = _partition_perm_flat(alive)
-        return _permute_packed(perm, state_f32, state_bits)
+    so they cluster at the tail — stream compaction without any queue
+    machinery."""
     key = _ray_sort_key(scene, origin, direction)
     key = jnp.where(alive, key, jnp.uint32(0xFFFFFFFF))
     perm = jnp.argsort(key)
@@ -534,13 +396,9 @@ def _sort_wavefront(scene, origin, direction, alive, state_f32, state_bits,
 def _permute_packed(perm, f32_cols, bit_cols):
     """Permute many [N] state arrays with ONE [N,F] row-gather + transpose.
 
-    Per-array 1D gathers run ~0.06 G/s on TPU (measured round 1: permuting
-    16 arrays = 293ms); a single fat row gather + one transpose is ~100x
-    cheaper. The table is INT32: floats ride as i32 bitcasts. (The reverse —
-    ints bitcast to f32 — is NOT safe on TPU: int values < 2^23 are f32
-    subnormals and get flushed to zero somewhere in the gather/transpose
-    lowering; measured 261881/262144 corrupted. Integer lanes never flush.)
-    """
+    The table is INT32: floats ride as i32 bitcasts (never the reverse — an
+    int bitcast to f32 is a subnormal that a flush-to-zero path would
+    destroy)."""
     def to_i32(c):
         if c.dtype == jnp.bool_:
             return c.astype(jnp.int32)  # exact 0/1
@@ -578,11 +436,17 @@ def trace_paths(
     sort_rays: bool = False,
     cone_spread=None,
     collect_stats: bool = False,
+    lane_id=None,
 ):
     """One path per entry; returns (radiance Vec3, first_event [N]) — plus a
     stats dict (alive closest/shadow ray counts summed over bounces) when
     collect_stats is set (bench honesty: Mrays/s over lanes actually alive,
     not the full masked-SIMD wavefront).
+
+    lane_id: [N] uint32 identity of each path that does not depend on how
+    the wavefront is laid out or sharded (render_launch passes the global
+    sample/pixel index); it keys the stochastic texture filter. Defaults to
+    the lane index.
 
     cone_spread: traced scalar — the per-pixel ray-cone angle (radians,
     ~2*tan(fov/2)/height). When given, texture lookups become trilinear with
@@ -590,9 +454,9 @@ def trace_paths(
 
     sort_rays: after the first bounce, reorder the whole wavefront by a
     position-Morton/direction-octant key (one argsort + one packed
-    row-gather) so the Pallas intersector's ray tiles stay spatially
-    coherent on secondary rays. Results are restored to the original ray
-    order before returning.
+    row-gather) so neighbouring lanes stay spatially coherent on secondary
+    rays. Off by default. Results are restored to the original ray order
+    before returning.
     """
     n = sample_idx.shape[0]
     radiance = V.full(n, 0.0)
@@ -617,21 +481,10 @@ def trace_paths(
 
     # ray_id[i] = the original wavefront slot of lane i (identity unless sorted)
     ray_id = None
+    if lane_id is None:
+        lane_id = jnp.arange(n, dtype=jnp.uint32)
     stat_closest = jnp.zeros((), jnp.float32)
     stat_shadow = jnp.zeros((), jnp.float32)
-    from strelka_tpu.ops.intersect import _use_flat
-
-    # flat-path scenes skip the Morton sort (no block culling to feed), but a
-    # cheap stable DEAD-TO-TAIL partition (one cumsum+scatter, no argsort)
-    # still clusters terminated lanes into whole tiles the small kernels'
-    # dead-tile guard skips; alive lanes keep their Z-order coherence
-    compact_rays = (
-        not sort_rays
-        and bool(getattr(scene, "use_pallas", False))
-        and _use_flat(scene)
-        and _tuned.get_bool("flat_compact", False)
-    )
-    sort_rays = sort_rays or compact_rays
     for depth in range(max_depth):
         if sort_rays and depth >= 1:
             if ray_id is None:
@@ -645,8 +498,8 @@ def trace_paths(
                     throughput.x, throughput.y, throughput.z,
                     last_bsdf_pdf, t_total,
                 ],
-                [sample_idx, first_event, prev_prim, inside, specular_bounce, alive, ray_id],
-                compact_only=compact_rays,
+                [sample_idx, first_event, prev_prim, inside, specular_bounce, alive, ray_id,
+                 lane_id],
             )
             origin = Vec3(*f32s[0:3])
             direction = Vec3(*f32s[3:6])
@@ -655,27 +508,21 @@ def trace_paths(
             last_bsdf_pdf = f32s[12]
             t_total = f32s[13]
             (sample_idx, first_event, prev_prim, inside, specular_bounce,
-             alive, ray_id) = bits[:7]
+             alive, ray_id, lane_id) = bits[:8]
 
-        # One batched draw of the 5 folded Sobol dimensions per bounce,
-        # fused into a single Pallas kernel on TPU (bit-identical to the XLA
-        # path; dimension = Dim % 5, RandomSampler.h:224 — e.g. eBSDF2 and
+        # One batched draw of the 5 folded Sobol dimensions per bounce
+        # (dimension = Dim % 5, RandomSampler.h:224 — e.g. eBSDF2 and
         # eLightId collide on dim 2 in the reference too).
-        if getattr(scene, "use_pallas", False):
-            dim_rows = S.random_dims_pallas(sample_idx, depth, (0, 1, 2, 3, 4))
-        else:
-            dim_rows = S.random_dims(sample_idx, depth, (0, 1, 2, 3, 4))
+        dim_rows = S.random_dims(sample_idx, depth, (0, 1, 2, 3, 4))
         rnd = lambda dim: dim_rows[int(dim) % 5]
 
         if collect_stats:
             stat_closest = stat_closest + alive.astype(jnp.float32).sum()
-        on_pallas = bool(getattr(scene, "use_pallas", False))
         hit = intersect_closest(
             scene, origin, direction, tmin_mat, tmax_big, RAY_MASK_PRIMARY,
-            active=alive, exclude=prev_prim, shared_origin=(depth == 0),
-            skip_uv=on_pallas,
+            active=alive, exclude=prev_prim,
         )
-        # curve (hair) primitives: dense round-cone sweep, closest wins
+        # curve (hair) primitives: blocked round-cone sweep, closest wins
         is_curve = jnp.zeros(n, bool)
         chit = None
         if scene.cones is not None:
@@ -683,26 +530,24 @@ def trace_paths(
 
             chit = intersect_curves_closest_scene(
                 scene, origin, direction, tmin_mat, tmax_big, active=alive,
-                shared_origin=(depth == 0),
             )
-            if _tuned.get_bool("curve_refine", True):
-                # exact swept-B-spline refinement of the cone candidate
-                # (phantom-style Newton, ops/curve_refine.py): the reference
-                # gets the exact envelope from OptiX's builtin
-                # ROUND_CUBIC_BSPLINE IS (OptixRender.cpp:554-560); here the
-                # cone broad phase seeds per-lane VPU Newton — pure
-                # elementwise jnp, fused by XLA into the shade epilogue
-                from strelka_tpu.ops.curve_refine import refine_scene_curve_hit
+            # exact swept-B-spline refinement of the cone candidate
+            # (phantom-style Newton, ops/curve_refine.py): the reference
+            # gets the exact envelope from OptiX's builtin
+            # ROUND_CUBIC_BSPLINE IS (OptixRender.cpp:554-560); here the
+            # cone broad phase seeds per-lane Newton — pure elementwise jnp,
+            # fused by XLA into the shade epilogue
+            from strelka_tpu.ops.curve_refine import refine_scene_curve_hit
 
-                rt, ru, keep = refine_scene_curve_hit(
-                    scene.curves, origin, direction, chit.t, chit.seg, chit.u
-                )
-                # ghosts admitted by the inflated broad-phase radii -> miss
-                chit = chit._replace(
-                    t=jnp.where(keep, rt, jnp.float32(1e30)),
-                    u=jnp.where(keep, ru, 0.0),
-                    seg=jnp.where(keep, chit.seg, -1),
-                )
+            rt, ru, keep = refine_scene_curve_hit(
+                scene.curves, origin, direction, chit.t, chit.seg, chit.u
+            )
+            # ghosts admitted by the inflated broad-phase radii -> miss
+            chit = chit._replace(
+                t=jnp.where(keep, rt, jnp.float32(1e30)),
+                u=jnp.where(keep, ru, 0.0),
+                seg=jnp.where(keep, chit.seg, -1),
+            )
             is_curve = alive & (chit.seg >= 0) & (chit.t < hit.t)
         missed = alive & (hit.prim < 0) & ~is_curve
 
@@ -715,12 +560,10 @@ def trace_paths(
         throughput = V.where(missed, V.full(n, 0.0), throughput)
 
         position, uv, frame, mat_id, raw_light_id, uv_density_log2, attr_rows = _gather_surface(
-            scene, hit, inside,
-            ray_o=origin if on_pallas else None,
-            ray_d=direction if on_pallas else None,
+            scene, hit, inside
         )
         # material/light rows joined into the attr table ([T, ATTR_JOINED],
-        # see device_scene) ride the SAME one-hot gather — no extra fat gathers
+        # see device_scene) ride the SAME row gather — no extra fat gathers
         from strelka_tpu.render.device_scene import (
             ATTR_JOINED, ATTR_LIGHT_ROW, ATTR_MAT_ROW,
         )
@@ -754,25 +597,24 @@ def trace_paths(
         if chit is not None:
             t_eff = jnp.where(is_curve, chit.t, hit.t)
         t_hit = t_total + jnp.where(alive & ~missed, t_eff, 0.0)
-        if scene.textures is not None and not _NO_TEX:
+        if scene.textures is not None:
             lod_uv = None
             if cone_spread is not None:
                 lod_uv = jnp.log2(jnp.maximum(cone_spread * t_hit, 1e-20)) + uv_density_log2
             tex_rnd = None
-            if lod_uv is not None and _tuned.get_bool("tex_stochastic", True):
+            if lod_uv is not None:
                 # per-lane uniforms for one-texel stochastic filtering:
                 # (pixel, sample, bounce, lookup slot)-keyed murmur hashes —
                 # decorrelated from the Sobol BSDF/light dims, deterministic
                 # across backends (CPU goldens draw the same texels)
-                _rid = ray_id if ray_id is not None else jnp.arange(n, dtype=jnp.int32)
                 _tex_seed = S.hash_combine(
-                    S.hash_u32(sample_idx), _rid.astype(jnp.uint32) * jnp.uint32(2654435761) + jnp.uint32(depth)
+                    S.hash_u32(sample_idx), lane_id * jnp.uint32(2654435761) + jnp.uint32(depth)
                 )
 
                 def tex_rnd(slot, _seed=_tex_seed):
                     h = S.hash_u32(S.hash_combine(_seed, jnp.uint32(slot + 1)))
                     # 3 decorrelated 10/11-bit-plus lanes from one hash are
-                    # too short; re-hash per component instead (cheap VPU)
+                    # too short; re-hash per component instead (cheap)
                     h2 = S.hash_u32(h ^ jnp.uint32(0x68BC21EB))
                     h3 = S.hash_u32(h ^ jnp.uint32(0x02E5BE93))
                     to_f = lambda u: (u >> jnp.uint32(8)).astype(jnp.float32) * jnp.float32(1.0 / (1 << 24))
@@ -815,18 +657,14 @@ def trace_paths(
         # cutout decision FIRST: a lane that passes through as transparent
         # must not collect emission either (emission would otherwise be
         # overcounted by 1/opacity on emissive+cutout materials)
-        if _NO_CUTOUT:
-            cut = jnp.zeros(n, bool)
-        else:
-            u_cut = S.uniform_hash(sample_idx, depth)
-            cut = hit_surface & (mat.opacity < 1.0) & (u_cut >= mat.opacity)
+        u_cut = S.uniform_hash(sample_idx, depth)
+        cut = hit_surface & (mat.opacity < 1.0) & (u_cut >= mat.opacity)
 
-        if not _NO_EMISSION:
-            emissive = hit_surface & ~cut & V.any_nonzero(mat.emission_color)
-            front = V.dot(frame.geom_normal, direction) < 0.0
-            radiance = V.where(
-                emissive & front, radiance + throughput * mat.emission_color, radiance
-            )
+        emissive = hit_surface & ~cut & V.any_nonzero(mat.emission_color)
+        front = V.dot(frame.geom_normal, direction) < 0.0
+        radiance = V.where(
+            emissive & front, radiance + throughput * mat.emission_color, radiance
+        )
 
         ior1 = jnp.where(inside, mat.ior, 1.0)
         ior2 = jnp.where(inside, 1.0, mat.ior)
@@ -839,16 +677,15 @@ def trace_paths(
         # a specular-transmission event without flipping the medium. Maps the
         # reference's alpha-mode -> OmniGlass/enable_opacity handling
         # (gltfloader.cpp:358-421) onto any material's opacity value.
-        if not _NO_CUTOUT:
-            ones3 = V.full(n, 1.0)
-            smp = B.BsdfSample(
-                k2=V.where(cut, direction, smp.k2),
-                pdf=jnp.where(cut, 0.0, smp.pdf),
-                bsdf_over_pdf=V.where(cut, ones3, smp.bsdf_over_pdf),
-                event_type=jnp.where(
-                    cut, B.BSDF_EVENT_SPECULAR_TRANSMISSION, smp.event_type
-                ).astype(jnp.int32),
-            )
+        ones3 = V.full(n, 1.0)
+        smp = B.BsdfSample(
+            k2=V.where(cut, direction, smp.k2),
+            pdf=jnp.where(cut, 0.0, smp.pdf),
+            bsdf_over_pdf=V.where(cut, ones3, smp.bsdf_over_pdf),
+            event_type=jnp.where(
+                cut, B.BSDF_EVENT_SPECULAR_TRANSMISSION, smp.event_type
+            ).astype(jnp.int32),
+        )
 
         absorbed = hit_surface & (smp.event_type == B.BSDF_EVENT_ABSORB)
         if depth == 0:
@@ -892,36 +729,16 @@ def trace_paths(
             shadow_excl = jnp.where(is_curve, -1, hit.prim)
             if collect_stats:
                 stat_shadow = stat_shadow + (nee_able & geom_ok).astype(jnp.float32).sum()
-            shadow_tmax = jnp.where(nee_able & geom_ok, ls.dist_to_light, 0.0)
-            # default OFF since the r4 hardware A/B: grouping cost 208 ms on
-            # box_field 512^2 (2340 vs 2132 ms) — the per-light partition's
-            # two packed gathers outweigh the sparser W on measured scenes.
-            # STRELKA_NO_SHADOW_GROUP=0/1 still forces via tuned resolution.
-            no_group = _tuned.get_bool("no_shadow_group", True)
-            group_shadow = (
-                on_pallas
-                and num_lights >= 2
-                and num_lights <= 8
-                and sort_rays  # same big-scene criterion as the wavefront sort
-                and not no_group
+            occluded = intersect_any(
+                scene,
+                shadow_org,
+                to_light,
+                jnp.full(n, shadow_ray_tmin, jnp.float32),
+                ls.dist_to_light,
+                RAY_MASK_SHADOW,
+                active=nee_able & geom_ok,
+                exclude=shadow_excl,
             )
-            if group_shadow:
-                occluded = _shadow_grouped_any(
-                    scene, shadow_org, to_light,
-                    jnp.full(n, shadow_ray_tmin, jnp.float32), shadow_tmax,
-                    RAY_MASK_SHADOW, shadow_excl, light_id, num_lights,
-                )
-            else:
-                occluded = intersect_any(
-                    scene,
-                    shadow_org,
-                    to_light,
-                    jnp.full(n, shadow_ray_tmin, jnp.float32),
-                    ls.dist_to_light,
-                    RAY_MASK_SHADOW,
-                    active=nee_able & geom_ok,
-                    exclude=shadow_excl,
-                )
             if scene.cones is not None:
                 from strelka_tpu.ops.curves import intersect_curves_any_scene
 
@@ -1015,13 +832,18 @@ def render_launch(
     shadow_ray_tmin: float = 0.0,
     material_ray_tmin: float = 0.0,
     debug: int = 0,
-    sort_rays: bool | None = None,
+    sort_rays: bool = False,
+    zorder_pixels: bool = False,
     py_offset=None,
     full_height: int | None = None,
     collect_stats: bool = False,
 ):
     """__raygen__rg equivalent: run samples_per_launch paths/pixel, update
     the accumulators, and return (new_state, hdr_image [3,H,W]).
+
+    sort_rays / zorder_pixels: wavefront reordering options (Morton re-sort
+    of bounce rays, Z-order pixel enumeration); both off by default and
+    image-neutral up to float op order.
 
     Tonemap is applied by the Render host layer (matching the reference's
     separate tonemap kernel dispatch).
@@ -1038,12 +860,11 @@ def render_launch(
     spl = 1 if debug == 1 else samples_per_launch
 
     # All samples of the launch ride ONE wavefront of spl*W*H rays.
-    # On the Pallas path, pixels are enumerated in Z-ORDER so each ray tile
-    # is a compact square screen block (a row-major tile is a thin strip
-    # whose frustum crosses the whole scene and defeats block culling);
+    # With zorder_pixels, pixels are enumerated in Z-ORDER so neighbouring
+    # lanes form compact square screen blocks instead of thin row strips;
     # results are unsorted once at the end with a packed row-gather.
     zorder = None
-    if getattr(scene, "use_pallas", False) and _os.environ.get("STRELKA_NO_ZORDER") != "1":
+    if zorder_pixels:
         zorder, z_inv = _pixel_zorder(width, height)
         px = jnp.tile(jnp.asarray(zorder % width, jnp.uint32), spl)
         py = jnp.tile(jnp.asarray(zorder // width, jnp.uint32), spl)
@@ -1057,14 +878,11 @@ def render_launch(
     s_of_ray = jnp.repeat(jnp.arange(spl, dtype=jnp.uint32), n)
     sample_index = params.subframe_index.astype(jnp.uint32) + s_of_ray
     sample_idx = S.make_sample_index(px, py, sample_index, max_sample_count)
+    # global (sample, pixel) lane identity: equal to the lane index of an
+    # unsharded row-major launch, and the same for a pixel on every shard
+    lane_id = s_of_ray * jnp.uint32(width * fh) + py * jnp.uint32(width) + px
     jxy = S.random_dims(sample_idx, 0, (Dim.ePixelX, Dim.ePixelY))
     origin, direction = generate_camera_rays(params, px, py, jxy[0], jxy[1], width, fh)
-    if sort_rays is None:
-        # worth the ~1 argsort+2 packed permutes only when the block-culled
-        # intersectors have enough blocks for coherence to matter
-        sort_rays = bool(getattr(scene, "use_pallas", False)) and (
-            scene.num_triangles >= 16384 or scene.num_curve_segments >= 2048
-        )
     out = trace_paths(
         scene,
         params,
@@ -1081,6 +899,7 @@ def render_launch(
         # tan(fov_y/2)); drives mip selection in texture lookups
         cone_spread=2.0 * jnp.abs(params.clip_to_view[1, 1]) / fh,
         collect_stats=collect_stats,
+        lane_id=lane_id,
     )
     radiance, first_event, stats = out
     # [spl*n] components -> [spl, n] -> reduce over samples

@@ -1,10 +1,9 @@
 """Ray-scene intersection dispatch + jnp brute-force kernels.
 
 Replaces OptiX hardware traversal (optixTrace, OptixRender.cu:120-129).
-Rays are component-major Vec3 (ops/vec.py). Dispatch order: Pallas dense
-kernels on TPU (ops/pallas_intersect.py), threaded-BVH traversal when the
-scene has one, else the jnp brute-force sweep (the CPU path and the
-correctness oracle).
+Rays are component-major Vec3 (ops/vec.py). Threaded-BVH traversal when the
+scene has a BVH, else the jnp brute-force sweep (also the correctness
+oracle of the BVH path).
 
 Also hosts offset_ray, the exact port of the Ray Tracing Gems self-
 intersection offset (OptixRender_radiance_closest_hit.cu:218-233).
@@ -100,647 +99,6 @@ def _as_vec3(x) -> Vec3:
     return x if isinstance(x, Vec3) else V.from_rows(jnp.asarray(x))
 
 
-FLAT_KERNEL_MAX_TRIS = 65536  # below this the flat single-pass kernels win
-SMALL_MXU_MAX = 8192  # whole-scene-in-VMEM MXU kernels (cornell-class)
-import os as _os
-
-from strelka_tpu import tuned as _tuned
-
-# superblock-path ray tile (incoherent bounce tiles cull better when small;
-# overridable for tuning)
-SUPER_PATH_TILE = int(_os.environ.get("STRELKA_SUPER_TILE", "1024"))
-
-
-def _use_flat(scene) -> bool:
-    return scene.num_triangles <= FLAT_KERNEL_MAX_TRIS
-
-
-# Residual two-pass sweep (the TPU stand-in for per-ray ordered BVH
-# termination): phase 1 sweeps each tile's K nearest superblocks; rays whose
-# remaining unswept blocks cannot beat their current best are RESOLVED; the
-# open remainder is stable-partitioned to the front (compaction) and swept
-# against the full near-to-far order with tmax primed by phase 1. One
-# incoherent lane no longer drags its whole 1024-ray tile through the scene.
-RESIDUAL_K = _tuned.get_int("residual_k", 16)
-_NO_RESIDUAL = _os.environ.get("STRELKA_NO_RESIDUAL") == "1"
-
-
-def _use_residual(scene) -> bool:
-    if _NO_RESIDUAL or getattr(scene, "block_cents", None) is None:
-        return False
-    step = scene.kernel_tblk * scene.kernel_super
-    nsb = -(-scene.num_triangles // step)
-    return nsb >= 2 * RESIDUAL_K
-
-
-def _partition_perm(flag):
-    """Stable open-first partition permutation (no argsort: 1 cumsum + 1
-    scatter). Returns (perm, pos): perm gathers rays into partitioned order,
-    pos maps each original lane to its partitioned slot (the inverse)."""
-    n = flag.shape[0]
-    r = jnp.cumsum(flag.astype(jnp.int32))
-    total = r[n - 1]
-    idx = jnp.arange(n, dtype=jnp.int32)
-    pos = jnp.where(flag, r - 1, total + idx - r)
-    perm = jnp.zeros(n, jnp.int32).at[pos].set(idx)
-    return perm, pos
-
-
-def _gather_ray_rows(perm, origins, directions, tmin, tmax, exclude):
-    """Permute the 8 ray rows + exclude with ONE [N, 9] row-gather.
-
-    The table is i32 (floats bitcast): TPU flushes f32-subnormal lanes in
-    this gather+transpose shape, so small ints must never ride as f32."""
-    excl = exclude if exclude is not None else jnp.full(tmin.shape[0], -1, jnp.int32)
-    f = lambda c: jax.lax.bitcast_convert_type(c, jnp.int32)
-    table = jnp.stack(
-        [
-            f(origins.x), f(origins.y), f(origins.z),
-            f(directions.x), f(directions.y), f(directions.z),
-            f(tmin), f(tmax),
-            excl,
-        ],
-        axis=1,
-    )
-    rows = table[perm].T
-    g = lambda r: jax.lax.bitcast_convert_type(r, jnp.float32)
-    o = Vec3(g(rows[0]), g(rows[1]), g(rows[2]))
-    d = Vec3(g(rows[3]), g(rows[4]), g(rows[5]))
-    return o, d, g(rows[6]), g(rows[7]), rows[8]
-
-
-def _run_super_closest(scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude, starts,
-                       tile=None):
-    from strelka_tpu.ops.pallas_intersect import (
-        pallas_intersect_closest,
-        pallas_intersect_closest_mxu,
-    )
-
-    tb, sp = scene.kernel_tblk, scene.kernel_super
-    tile = SUPER_PATH_TILE if tile is None else tile
-    if use_mxu:
-        return pallas_intersect_closest_mxu(
-            scene.tris_feats, scene.tris_mask, scene.tri_bounds, o, d, tmin, tmax,
-            ray_mask, exclude=exclude, starts=starts,
-            tile=tile, tblk=tb, super_=sp, local=scene.tris_local,
-            precision=_prec_closest(scene),
-        )
-    return pallas_intersect_closest(
-        scene.tris_packed, scene.tri_bounds, o, d, tmin, tmax,
-        ray_mask, exclude=exclude, starts=starts,
-        tile=tile, tblk=tb, super_=sp,
-    )
-
-
-def _run_super_any(scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude, starts,
-                   tile=None):
-    from strelka_tpu.ops.pallas_intersect import (
-        pallas_intersect_any,
-        pallas_intersect_any_mxu,
-    )
-
-    tb, sp = scene.kernel_tblk, scene.kernel_super
-    tile = SUPER_PATH_TILE if tile is None else tile
-    if use_mxu:
-        return pallas_intersect_any_mxu(
-            scene.tris_feats, scene.tris_mask, scene.tri_bounds, o, d, tmin, tmax,
-            ray_mask, exclude=exclude, starts=starts,
-            tile=tile, tblk=tb, super_=sp, local=scene.tris_local,
-            precision=_PREC_ANY,
-        )
-    return pallas_intersect_any(
-        scene.tris_packed, scene.tri_bounds, o, d, tmin, tmax,
-        ray_mask, exclude=exclude, starts=starts,
-        tile=tile, tblk=tb, super_=sp,
-    )
-
-
-# fused-K phase 1: sweep each tile's K nearest superblocks in ONE grid step
-# (K prefetch-indexed inputs, register accumulation — no t_ref read->write
-# serialization between the K steps, no per-sub-block when-guards, which on
-# phase-1 NEAR blocks almost always pass). VPU path only; A/B toggle.
-# default OFF since the r4 hardware A/B: the fused-K phase 1 LOST 558 ms on
-# box_field 512^2/2spp/4d (2548 vs 1991 ms, bit-identical image) — the K
-# scalar-prefetch-indexed inputs + register accumulation serialize worse than
-# the rectangular K-sweep's read->write round trips it was built to remove.
-_PHASE1_FUSED = _tuned.get_bool("phase1_fused", False)
-# f32-exact MXU fidelity mode (NOTES fact #45): the default bf16 matmul
-# passes pick the wrong prim on borderline closest-hit ties, flipping whole
-# specular paths vs the f32 CPU render (cornell SSIM 0.9877, coffeetable
-# 0.9739). Precision.HIGHEST (bf16x6 == f32-exact) restores bit-parity at
-# ~2x the matmul cost; knob so the fidelity/speed point is per-host tunable.
-_MXU_HIGHP = _tuned.get_bool("mxu_highp", False)
-_MXU_PREC = jax.lax.Precision.HIGHEST if _MXU_HIGHP else None
-# SELECTIVE precision split (VERDICT r4 task 2): the SSIM-visible error mode
-# is bf16 CLOSEST-hit prim/t selection (fact #45 — shadow_f32 moved SSIM by
-# only ~0.001); closest_highp upgrades ONLY the closest-sweep MXU kernels to
-# f32-exact, keeping any-hit sweeps at the fast default.
-_CLOSEST_HIGHP = _tuned.get_bool("closest_highp", False)
-
-
-def _parse_prec(name: str):
-    """'': kernel default (1-pass bf16); 'high'/'highest': bf16x6
-    (f32-exact). Mosaic's dot lowering rejects Precision.HIGH (bf16x3) —
-    hardware fact from the r5 chain4 probes — so 'high' aliases HIGHEST
-    inside Pallas kernels rather than failing to compile."""
-    s = _tuned.get_str(name, "")
-    return {
-        "high": jax.lax.Precision.HIGHEST,
-        "highest": jax.lax.Precision.HIGHEST,
-    }.get(s, None)
-
-
-_PREC_CLOSEST = (
-    jax.lax.Precision.HIGHEST
-    if (_MXU_HIGHP or _CLOSEST_HIGHP)
-    else _parse_prec("closest_prec")
-)
-
-
-def _prec_closest(scene):
-    """Per-scene closest-sweep MXU precision.
-
-    Explicit knobs (mxu_highp / closest_highp / closest_prec) win. Otherwise
-    the DEFAULT is fidelity-by-scene-class (fact #53, hardware-measured):
-    flat-path scenes get f32-exact closest selection (bf16x6 HIGHEST) —
-    cornell golden-SSIM 0.9877 -> 0.9995, coffeetable 0.9799 -> 0.9990 —
-    while superblock scenes (kitchen/box-class) stay 1-pass bf16: their
-    golden SSIM is already >= 0.9999 (the bf16 selection error is below
-    golden noise there) and HIGHEST would 6x their dominant sweep cost."""
-    if _PREC_CLOSEST is not None:
-        return _PREC_CLOSEST
-    if _use_flat(scene) and _tuned.get_bool("closest_highp_flat", True):
-        return jax.lax.Precision.HIGHEST
-    return None
-_PREC_ANY = _MXU_PREC if _MXU_PREC is not None else _parse_prec("any_prec")
-# superblocks per fused-K grid step (VPU): ~0.7MB scoped VMEM per unrolled
-# MT block + ~4MB open epilogue against the 16MB stack limit -> 1 is safe,
-# 2 borderline; the tuner may scan upward
-_P1_CHUNK = _tuned.get_int("p1_chunk", 1)
-
-
-def _run_phase1_closest(scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude,
-                        order_k, sbounds, d2, r2t, tile=None):
-    """Phase-1 closest sweep over each tile's K scheduled superblocks.
-    Returns (t, prim, open): the fused kernels compute the residual open
-    test in the same pass; the rectangular fallback runs pallas_open_w."""
-    tile = SUPER_PATH_TILE if tile is None else tile
-    if _PHASE1_FUSED:
-        if use_mxu:
-            from strelka_tpu.ops.pallas_intersect import (
-                pallas_intersect_closest_fusedk_mxu,
-            )
-
-            return pallas_intersect_closest_fusedk_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, order_k,
-                sbounds, d2, r2t, o, d, tmin, tmax, ray_mask,
-                exclude=exclude, tile=tile, tblk=scene.kernel_tblk,
-                super_=scene.kernel_super, local=scene.tris_local,
-                precision=_prec_closest(scene),
-            )
-        from strelka_tpu.ops.pallas_intersect import pallas_intersect_closest_fusedk
-
-        return pallas_intersect_closest_fusedk(
-            scene.tris_packed, order_k, sbounds, d2, r2t, o, d, tmin, tmax,
-            ray_mask, exclude=exclude, tile=tile,
-            tblk=scene.kernel_tblk, super_=scene.kernel_super, chunk=_P1_CHUNK,
-        )
-    from strelka_tpu.ops.pallas_intersect import pallas_open_w
-
-    t1, prim1 = _run_super_closest(
-        scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude, order_k, tile=tile
-    )
-    bound = jnp.minimum(t1, tmax)
-    open_, _, _ = pallas_open_w(o, d, tmin, bound, sbounds, d2, r2t, tile)
-    return t1, prim1, open_
-
-
-def _run_phase1_any(scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude,
-                    order_k, sbounds, d2, r2t, tile=None):
-    """Phase-1 any-hit sweep; returns (occ, open) (see _run_phase1_closest)."""
-    tile = SUPER_PATH_TILE if tile is None else tile
-    if _PHASE1_FUSED:
-        if use_mxu:
-            from strelka_tpu.ops.pallas_intersect import pallas_intersect_any_fusedk_mxu
-
-            return pallas_intersect_any_fusedk_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, order_k,
-                sbounds, d2, r2t, o, d, tmin, tmax, ray_mask,
-                exclude=exclude, tile=tile, tblk=scene.kernel_tblk,
-                super_=scene.kernel_super, local=scene.tris_local,
-                precision=_PREC_ANY,
-            )
-        from strelka_tpu.ops.pallas_intersect import pallas_intersect_any_fusedk
-
-        return pallas_intersect_any_fusedk(
-            scene.tris_packed, order_k, sbounds, d2, r2t, o, d, tmin, tmax,
-            ray_mask, exclude=exclude, tile=tile,
-            tblk=scene.kernel_tblk, super_=scene.kernel_super, chunk=_P1_CHUNK,
-        )
-    from strelka_tpu.ops.pallas_intersect import pallas_open_w
-
-    occ1 = _run_super_any(scene, use_mxu, o, d, tmin, tmax, ray_mask, exclude,
-                          order_k, tile=tile)
-    bound = jnp.where(occ1, 0.0, tmax)
-    open_, _, _ = pallas_open_w(o, d, tmin, bound, sbounds, d2, r2t, tile)
-    return occ1, open_
-
-
-# work-list capacity per tile for the phase-2 sweep; overflow falls back to
-# the rectangular grid via lax.cond (rare: phase-2 lists measured ~18/tile)
-_WL_CAP = _tuned.get_int("wl_cap", 48)
-# scenes with few superblocks take FULL capacity so overflow cannot happen
-# (pad entries skip their body and re-DMA nothing), where a cap just below
-# nsb would bounce dense interior wavefronts to the rectangular grid every
-# sweep (kitchen: nsb=52 vs cap 48 -> permanent fallback, 2x launch time).
-# CAVEAT: _WL_ENTRY_BUDGET overrides this guarantee — at n_tiles >
-# 46080/nsb the budget clamp pushes cap below nsb and the permanent-fallback
-# failure mode returns (suspected in fact #33's p2_tile=256 loss); the
-# build_worklist count-vs-cap is logged by scripts/wl_count_probe.py before
-# any small-tile retry.
-_WL_FULL_NSB = _tuned.get_int("wl_full_nsb", 96)
-# work-list sweeps on the MXU: "1" force, "0" never, unset -> follow the
-# scene's intersector choice. Once the work list skips dead pairs the sweep
-# is compute-bound on live steps, where the MXU matmul MT test wins even on
-# big scenes whose rectangular-grid crossover picked the VPU.
-_WL_MXU = _tuned.get_str("wl_mxu", "")
-# TOTAL work-list entry budget: wl rides the kernel's scalar-prefetch SMEM
-# as PACKED [1, C] i32 (tile<<14 | sb<<2 | flags, build_worklist), and SMEM
-# is a fixed 1MB/core — so C must be bounded by a CONSTANT, not per-tile.
-# 184320 entries = 720KB packed; the pre-packing [4, C] layout capped at
-# 46080 (2048 tiles x 48 at p2_tile=256 was 1.57MB -> hardware OOM), which
-# is what forced every small-tile schedule into the rectangular fallback.
-_WL_ENTRY_BUDGET = _tuned.get_int("wl_entries", 184320)
-
-
-def _wl_cap_per_tile(nsb: int, n_tiles: int) -> int:
-    base = nsb if nsb <= _WL_FULL_NSB else min(_WL_CAP, nsb)
-    return max(1, min(base, _WL_ENTRY_BUDGET // max(n_tiles, 1)))
-
-
-# Rectangular-fallback tile floor: the rectangular kernels carry an
-# UNtransposed [n_tiles, nsb] order table in SMEM (rows lane-pad to 128), so
-# small work-list tiles must NOT shrink the fallback's tiling — at tile 256
-# the table alone is 2048x128x4B = 1MB and both lax.cond branches must
-# compile even when the fallback is never taken (hardware OOM, fact #32).
-_RECT_FB_TILE_FLOOR = 1024
-
-
-def _rect_fallback_order(o2, sbounds, d2m, tile):
-    """Tile size + near-to-far order table for a work-list cond's rectangular
-    fallback branch: floors the tile at _RECT_FB_TILE_FLOOR and recomputes the
-    tile-box distances when the floor changes the tiling."""
-    from strelka_tpu.ops.pallas_intersect import tile_box_d2
-
-    fb_tile = max(tile, _RECT_FB_TILE_FLOOR)
-    d2fb = d2m if fb_tile == tile else tile_box_d2(o2, sbounds, fb_tile)
-    starts = jnp.argsort(d2fb, axis=1).astype(jnp.int32)
-    return fb_tile, starts
-
-
-def _wl_use_mxu(scene, use_mxu: bool) -> bool:
-    if scene.tris_feats is None:
-        return False
-    if _WL_MXU == "1":
-        return True
-    if _WL_MXU == "0":
-        return False
-    return use_mxu
-
-
-def _p2_tile() -> int:
-    """Phase-2 work-list tile size. sched_sim.py: open bounce lanes are
-    incoherent, so smaller tiles shrink each tile's W union faster than the
-    extra pair bookkeeping costs (1433 -> 1014 units at 256 on box_field)."""
-    return _tuned.get_int("p2_tile", SUPER_PATH_TILE)
-
-
-def _p1_tile() -> int:
-    """Phase-1 two-pass tile size: smaller tiles carry tighter K-balls
-    (open 0.34 -> 0.19 at 512 on box_field, sched_sim.py) at ~flat phase-1
-    flops. Below 512 the SMEM order table ([n_tiles, K] lane-pads K to 128)
-    overflows at 0.5M-ray launches — the tuner treats that crash as a loss."""
-    return _tuned.get_int("p1_tile", SUPER_PATH_TILE)
-
-
-def _open_partition(open_, directions):
-    """Open-first stable partition. Returns (perm, pos).
-
-    (An octant sub-grouping of the open segment via a pallas counting sort
-    was built in r3 and FALSIFIED on hardware — 2221 ms vs 1723 baseline,
-    NOTES fact #33 — and removed with the bucket-sort machinery in r4.)"""
-    del directions
-    return _partition_perm(open_)
-
-
-def _phase2_prep(scene, origins, directions, tmin, tmax2, exclude, sbounds, open_):
-    """Shared phase-2 setup: partition open rays to the front, permute the
-    wavefront, and build the (tile, superblock) work list."""
-    from strelka_tpu.ops.pallas_intersect import (
-        build_worklist,
-        pallas_open_w,
-        tile_box_d2,
-    )
-
-    tile = _p2_tile()
-    perm, pos = _open_partition(open_, directions)
-    o2, d2v, tmin2, tmax2p, excl2 = _gather_ray_rows(
-        perm, origins, directions, tmin, tmax2, exclude
-    )
-    d2m = tile_box_d2(o2, sbounds, tile)
-    no_open = jnp.full(d2m.shape[0], jnp.inf, jnp.float32)
-    _, W2, _ = pallas_open_w(o2, d2v, tmin2, tmax2p, sbounds, d2m, no_open, tile)
-    n_tiles2 = -(-tmin.shape[0] // tile)
-    cap = n_tiles2 * _wl_cap_per_tile(W2.shape[1], n_tiles2)
-    wl, count, visited = build_worklist(W2, d2m, cap)
-    return pos, o2, d2v, tmin2, tmax2p, excl2, d2m, wl, count, cap, visited
-
-
-def _wl_prep_single(scene, origins, directions, tmin, tmax):
-    """Shared single-sweep work-list prep (camera closest + shadow any):
-    per-tile box distances, slab W matrix, near-to-far work list."""
-    from strelka_tpu.ops.pallas_intersect import (
-        build_worklist,
-        pallas_open_w,
-        super_bounds_jnp,
-        tile_box_d2,
-    )
-
-    tile = SUPER_PATH_TILE
-    n = tmin.shape[0]
-    sbounds = super_bounds_jnp(scene.tri_bounds, scene.kernel_super)
-    d2m = tile_box_d2(origins, sbounds, tile)
-    no_open = jnp.full(d2m.shape[0], jnp.inf, jnp.float32)
-    _, W, _ = pallas_open_w(origins, directions, tmin, tmax, sbounds, d2m, no_open, tile)
-    n_tiles1 = -(-n // tile)
-    cap = n_tiles1 * _wl_cap_per_tile(W.shape[1], n_tiles1)
-    wl, count, visited = build_worklist(W, d2m, cap)
-    return tile, n, sbounds, d2m, wl, count, cap, visited
-
-
-def _closest_wl_single(scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude):
-    """Single work-list sweep: for CAMERA-class wavefronts (shared origin),
-    the K-nearest-around-origin phase 1 of the two-pass resolves nothing (the
-    origin is far from the geometry), but the slab W matrix is ~16x sparse —
-    one work-list pass replaces the rectangular grid's dead bookkeeping."""
-    from strelka_tpu.ops.pallas_intersect import (
-        build_worklist,
-        pallas_intersect_closest_wl,
-        pallas_intersect_closest_wl_mxu,
-        pallas_open_w,
-        super_bounds_jnp,
-        tile_box_d2,
-    )
-
-    tile, n, sbounds, d2m, wl, count, cap, visited = _wl_prep_single(
-        scene, origins, directions, tmin, tmax
-    )
-
-    def wl_path(_):
-        if _wl_use_mxu(scene, use_mxu):
-            t, prim = pallas_intersect_closest_wl_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, wl,
-                origins, directions, tmin, tmax,
-                ray_mask, exclude=exclude,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-                local=scene.tris_local, precision=_prec_closest(scene),
-            )
-        else:
-            t, prim = pallas_intersect_closest_wl(
-                scene.tris_packed, scene.tri_bounds, wl, origins, directions, tmin, tmax,
-                ray_mask, exclude=exclude,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-            )
-        vis_ray = jnp.repeat(visited, tile)[:n]
-        prim = jnp.where(vis_ray, prim, -1)
-        return jnp.where(prim >= 0, t, _BIG), prim
-
-    def rect_path(_):
-        # tile is env-overridable (STRELKA_SUPER_TILE): floor the fallback so
-        # a small-tile experiment can't SMEM-OOM this branch (ADVICE r3)
-        fb_tile, starts = _rect_fallback_order(origins, sbounds, d2m, tile)
-        return _run_super_closest(
-            scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude, starts,
-            tile=fb_tile,
-        )
-
-    return jax.lax.cond(count <= cap, wl_path, rect_path, None)
-
-
-def _closest_finish(scene, use_mxu, origins, directions, tmin, tmax, ray_mask,
-                    exclude, sbounds, t1, prim1, open_):
-    """Shared phase-2 of the residual closest sweeps: compact the open lanes,
-    work-list sweep them with tmax primed by phase 1, merge."""
-    from strelka_tpu.ops.pallas_intersect import (
-        pallas_intersect_closest_wl,
-        pallas_intersect_closest_wl_mxu,
-    )
-
-    tile = _p2_tile()
-    bound = jnp.minimum(t1, tmax)
-    tmax2 = jnp.where(open_, bound, 0.0)
-    pos, o2, d2v, tmin2, tmax2p, excl2, d2m, wl, count, cap, visited = _phase2_prep(
-        scene, origins, directions, tmin, tmax2, exclude, sbounds, open_
-    )
-    n = tmin.shape[0]
-
-    def wl_path(_):
-        if _wl_use_mxu(scene, use_mxu):
-            t2p, prim2p = pallas_intersect_closest_wl_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, wl,
-                o2, d2v, tmin2, tmax2p,
-                ray_mask, exclude=excl2,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-                local=scene.tris_local, precision=_prec_closest(scene),
-            )
-        else:
-            t2p, prim2p = pallas_intersect_closest_wl(
-                scene.tris_packed, scene.tri_bounds, wl, o2, d2v, tmin2, tmax2p,
-                ray_mask, exclude=excl2,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-            )
-        vis_ray = jnp.repeat(visited, tile)[:n]  # unvisited tiles = garbage
-        return t2p, jnp.where(vis_ray, prim2p, -1)
-
-    def rect_path(_):
-        fb_tile, starts2 = _rect_fallback_order(o2, sbounds, d2m, tile)
-        return _run_super_closest(
-            scene, use_mxu, o2, d2v, tmin2, tmax2p, ray_mask, excl2, starts2,
-            tile=fb_tile,
-        )
-
-    t2p, prim2p = jax.lax.cond(count <= cap, wl_path, rect_path, None)
-    back = jnp.stack(
-        [jax.lax.bitcast_convert_type(t2p, jnp.int32), prim2p], axis=1
-    )[pos].T
-    t2 = jax.lax.bitcast_convert_type(back[0], jnp.float32)
-    prim2 = back[1]
-    better = prim2 >= 0  # phase-2 hits are < bound by construction
-    return jnp.where(better, t2, t1), jnp.where(better, prim2, prim1)
-
-
-def _closest_twopass(scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude):
-    from strelka_tpu.ops.pallas_intersect import (
-        super_bounds_jnp,
-        tile_sweep_order_k,
-    )
-
-    sbounds = super_bounds_jnp(scene.tri_bounds, scene.kernel_super)
-    tile = _p1_tile()
-    order_k, r2t, d2 = tile_sweep_order_k(origins, sbounds, tile, RESIDUAL_K)
-    t1, prim1, open_ = _run_phase1_closest(
-        scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude,
-        order_k, sbounds, d2, r2t, tile=tile,
-    )
-    return _closest_finish(
-        scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude,
-        sbounds, t1, prim1, open_,
-    )
-
-
-def _any_wl_single(scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude):
-    """Single work-list ANY sweep (no K-nearest phase 1): grouped shadow
-    rays are direction-coherent (each tile's rays aim at one light), so the
-    slab W matrix is already frustum-sparse and the K-nearest-around-origin
-    priming pass may be pure overhead. A/B toggle: STRELKA_SHADOW_SINGLE=1
-    routes any-hit sweeps here instead of _any_twopass."""
-    from strelka_tpu.ops.pallas_intersect import (
-        build_worklist,
-        pallas_intersect_any_wl,
-        pallas_intersect_any_wl_mxu,
-        pallas_open_w,
-        super_bounds_jnp,
-        tile_box_d2,
-    )
-
-    tile, n, sbounds, d2m, wl, count, cap, visited = _wl_prep_single(
-        scene, origins, directions, tmin, tmax
-    )
-
-    def wl_path(_):
-        if _wl_use_mxu(scene, use_mxu):
-            occ = pallas_intersect_any_wl_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, wl,
-                origins, directions, tmin, tmax,
-                ray_mask, exclude=exclude,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-                local=scene.tris_local, precision=_PREC_ANY,
-            )
-        else:
-            occ = pallas_intersect_any_wl(
-                scene.tris_packed, scene.tri_bounds, wl, origins, directions,
-                tmin, tmax, ray_mask, exclude=exclude,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-            )
-        vis_ray = jnp.repeat(visited, tile)[:n]
-        return occ & vis_ray
-
-    def rect_path(_):
-        fb_tile, starts = _rect_fallback_order(origins, sbounds, d2m, tile)
-        return _run_super_any(
-            scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude, starts,
-            tile=fb_tile,
-        )
-
-    return jax.lax.cond(count <= cap, wl_path, rect_path, None)
-
-
-def _any_twopass(scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude):
-    from strelka_tpu.ops.pallas_intersect import (
-        super_bounds_jnp,
-        tile_sweep_order_k,
-    )
-
-    sbounds = super_bounds_jnp(scene.tri_bounds, scene.kernel_super)
-    tile = _p1_tile()
-    order_k, r2t, d2 = tile_sweep_order_k(origins, sbounds, tile, RESIDUAL_K)
-    occ1, open_ = _run_phase1_any(
-        scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude,
-        order_k, sbounds, d2, r2t, tile=tile,
-    )
-    return _any_finish(
-        scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude,
-        sbounds, occ1, open_,
-    )
-
-
-def _any_finish(scene, use_mxu, origins, directions, tmin, tmax, ray_mask,
-                exclude, sbounds, occ1, open_):
-    """Shared phase-2 of the residual any sweeps: compact the open lanes,
-    work-list sweep them, merge with the phase-1 occlusion."""
-    from strelka_tpu.ops.pallas_intersect import (
-        pallas_intersect_any_wl,
-        pallas_intersect_any_wl_mxu,
-    )
-
-    tile = _p2_tile()
-    tmax2 = jnp.where(open_, tmax, 0.0)
-    pos, o2, d2v, tmin2, tmax2p, excl2, d2m, wl, count, cap, visited = _phase2_prep(
-        scene, origins, directions, tmin, tmax2, exclude, sbounds, open_
-    )
-    n = tmin.shape[0]
-
-    def wl_path(_):
-        if _wl_use_mxu(scene, use_mxu):
-            occ2p = pallas_intersect_any_wl_mxu(
-                scene.tris_feats, scene.tris_mask, scene.tri_bounds, wl,
-                o2, d2v, tmin2, tmax2p,
-                ray_mask, exclude=excl2,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-                local=scene.tris_local, precision=_PREC_ANY,
-            )
-        else:
-            occ2p = pallas_intersect_any_wl(
-                scene.tris_packed, scene.tri_bounds, wl, o2, d2v, tmin2, tmax2p,
-                ray_mask, exclude=excl2,
-                tile=tile, tblk=scene.kernel_tblk, super_=scene.kernel_super,
-            )
-        vis_ray = jnp.repeat(visited, tile)[:n]
-        return occ2p & vis_ray
-
-    def rect_path(_):
-        fb_tile, starts2 = _rect_fallback_order(o2, sbounds, d2m, tile)
-        return _run_super_any(
-            scene, use_mxu, o2, d2v, tmin2, tmax2p, ray_mask, excl2, starts2,
-            tile=fb_tile,
-        )
-
-    occ2p = jax.lax.cond(count <= cap, wl_path, rect_path, None)
-    occ2 = occ2p.astype(jnp.int32)[:, None][pos][:, 0] != 0
-    return occ1 | occ2
-
-
-def _tile_starts(scene, origins):
-    """Per-ray-tile near-to-far sweep order (None when unavailable).
-
-    SMEM is 1MB; the full [n_tiles, nsb] order table only fits for
-    moderate tile-count x superblock-count products — beyond that fall back
-    to 1D start offsets (Morton-rotate from the nearest superblock)."""
-    cents = getattr(scene, "block_cents", None)
-    if cents is None:
-        return None
-    from strelka_tpu.ops.pallas_intersect import (
-        super_bounds_jnp,
-        tile_box_d2,
-        tile_start_offsets,
-    )
-
-    nsb = int(cents.shape[0])
-    if nsb < 8:  # tiny scenes: ordering buys nothing
-        return None
-    n = int(origins.x.shape[0])
-    n_tiles = -(-n // SUPER_PATH_TILE)
-    # lane padding to 128 multiples in SMEM
-    padded_bytes = n_tiles * (-(-nsb // 128) * 128) * 4
-    if padded_bytes <= 600_000:
-        # near-to-far by point-to-AABB distance (not centroid distance: a
-        # ground-slab block containing the origin must sweep FIRST)
-        sbounds = super_bounds_jnp(scene.tri_bounds, scene.kernel_super)
-        d2 = tile_box_d2(origins, sbounds, SUPER_PATH_TILE)
-        return jnp.argsort(d2, axis=1).astype(jnp.int32)
-    return tile_start_offsets(origins, cents, SUPER_PATH_TILE)
-
-
 def intersect_closest(
     scene: DeviceScene,
     origins,
@@ -750,87 +108,16 @@ def intersect_closest(
     ray_mask: int,
     active: jnp.ndarray | None = None,
     exclude: jnp.ndarray | None = None,
-    shared_origin: bool = False,  # accepted for API stability; scheduling is uniform
-    skip_uv: bool = False,  # caller recomputes barycentrics from its own attr gather
 ) -> Hit:
-    """Dispatch: Pallas dense kernel on TPU, BVH traversal when the scene has
-    one, else jnp brute force. origins/directions: Vec3 (or [N,3]).
+    """Closest hit: threaded-BVH traversal when the scene has a BVH, else
+    the brute-force sweep (ops/backend.py decides which the scene gets).
+    origins/directions: Vec3 (or [N,3]).
 
-    exclude: [N] i32 primitive id each ray originated from (-1 = none); the
-    kernel rejects it exactly (self-intersection guard, replaces the pure
-    epsilon scheme of OptixRender_radiance_closest_hit.cu:218-233).
-    shared_origin: hint that all rays start from one point (camera launch);
-    picks the single work-list schedule instead of the residual two-pass
-    (K-nearest-origin priming is useless when the origin is off-scene)."""
+    exclude: [N] i32 primitive id each ray originated from (-1 = none); it
+    is rejected exactly (self-intersection guard on top of the epsilon
+    scheme of OptixRender_radiance_closest_hit.cu:218-233)."""
     origins = _as_vec3(origins)
     directions = _as_vec3(directions)
-    if getattr(scene, "use_pallas", False) and scene.tris_packed is not None:
-        from strelka_tpu.ops.pallas_intersect import (
-            pallas_intersect_closest,
-            pallas_intersect_closest_mxu,
-            recompute_barycentrics,
-        )
-
-        if active is not None:
-            tmax = jnp.where(active, tmax, 0.0)
-        use_mxu = getattr(scene, "intersector", "mxu") == "mxu" and scene.tris_feats is not None
-        if _use_flat(scene):
-            # small scenes: the flat single-pass kernels win (no culling to
-            # exploit; measured cornell e2e 158 vs 265 ms vs superblock)
-            from strelka_tpu.ops.pallas_intersect import (
-                pallas_intersect_closest_flat,
-                pallas_intersect_closest_mxu_flat,
-            )
-
-            if use_mxu and scene.tris_feats.shape[1] <= SMALL_MXU_MAX:
-                # whole scene VMEM-resident: register accumulation, no
-                # per-cell guards/feature recompute/t_ref serialization
-                from strelka_tpu.ops.pallas_intersect import (
-                    pallas_intersect_closest_mxu_small,
-                )
-
-                t, prim = pallas_intersect_closest_mxu_small(
-                    scene.tris_feats, scene.tris_mask, origins,
-                    directions, tmin, tmax, ray_mask, exclude=exclude, tile=1024,
-                    tblk=scene.kernel_tblk, precision=_prec_closest(scene),
-                )
-            elif use_mxu:
-                t, prim = pallas_intersect_closest_mxu_flat(
-                    scene.tris_feats, scene.tris_mask, scene.tri_bounds, origins,
-                    directions, tmin, tmax, ray_mask, exclude=exclude, tile=2048,
-                    tblk=scene.kernel_tblk, local=scene.tris_local,
-                    precision=_prec_closest(scene),
-                )
-            else:
-                t, prim = pallas_intersect_closest_flat(
-                    scene.tris_packed, scene.tri_bounds, origins, directions,
-                    tmin, tmax, ray_mask, exclude=exclude, tile=2048,
-                    tblk=scene.kernel_tblk,
-                )
-        elif _use_residual(scene):
-            # closest_single: skip the K-nearest phase 1 on BOUNCE sweeps too
-            # (shadow sweeps won that A/B — tuned shadow_single=true); the
-            # phase-1 rect kernels are ~24% of the kitchen launch
-            if shared_origin or _tuned.get_bool("closest_single", False):
-                t, prim = _closest_wl_single(
-                    scene, use_mxu, origins, directions, tmin, tmax,
-                    ray_mask, exclude
-                )
-            else:
-                t, prim = _closest_twopass(
-                    scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude
-                )
-        else:
-            starts = _tile_starts(scene, origins)
-            t, prim = _run_super_closest(
-                scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude, starts
-            )
-        if skip_uv:
-            z = jnp.zeros_like(t)
-            return Hit(t=t, prim=prim, u=z, v=z)
-        u, v = recompute_barycentrics(scene.v0, scene.e1, scene.e2, origins, directions, prim)
-        miss = prim < 0
-        return Hit(t=t, prim=prim, u=jnp.where(miss, 0.0, u), v=jnp.where(miss, 0.0, v))
     if scene.bvh is not None:
         from strelka_tpu.ops.bvh import intersect_bvh
 
@@ -862,70 +149,9 @@ def intersect_any(
     active: jnp.ndarray | None = None,
     exclude: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
-    """Occlusion dispatch -> [N] bool.
-
-    With the exclude-prim guard (reject the origin primitive by id), shadow
-    rays can ride the fast MXU kernel too: the bf16x3 t error only ever
-    produced SELF-hits (acne), which the id rejection removes exactly.
-    CAVEAT (r4): the id guard cannot reject COPLANAR-NEIGHBOR false hits —
-    bf16 u/v error on a shadow ray grazing the tri next to its origin tri
-    darkens pixels (coffeetable TPU-vs-CPU SSIM 0.9800 MXU vs 0.9999 VPU).
-    `shadow_f32` (tuned) forces the f32 VPU kernels for occlusion sweeps
-    only, keeping the MXU closest-hit speed.
-    """
+    """Occlusion -> [N] bool: BVH any-hit traversal or the brute-force sweep."""
     origins = _as_vec3(origins)
     directions = _as_vec3(directions)
-    if getattr(scene, "use_pallas", False) and scene.tris_packed is not None:
-        from strelka_tpu.ops.pallas_intersect import (
-            pallas_intersect_any,
-            pallas_intersect_any_mxu,
-        )
-
-        if active is not None:
-            tmax = jnp.where(active, tmax, 0.0)
-        use_mxu = getattr(scene, "intersector", "mxu") == "mxu" and scene.tris_feats is not None
-        if use_mxu and _tuned.get_bool("shadow_f32", False):
-            use_mxu = False
-        if _use_flat(scene):
-            from strelka_tpu.ops.pallas_intersect import (
-                pallas_intersect_any_flat,
-                pallas_intersect_any_mxu_flat,
-            )
-
-            if use_mxu and scene.tris_feats.shape[1] <= SMALL_MXU_MAX:
-                from strelka_tpu.ops.pallas_intersect import (
-                    pallas_intersect_any_mxu_small,
-                )
-
-                return pallas_intersect_any_mxu_small(
-                    scene.tris_feats, scene.tris_mask, origins,
-                    directions, tmin, tmax, ray_mask, exclude=exclude, tile=1024,
-                    tblk=scene.kernel_tblk, precision=_PREC_ANY,
-                )
-            if use_mxu:
-                return pallas_intersect_any_mxu_flat(
-                    scene.tris_feats, scene.tris_mask, scene.tri_bounds, origins,
-                    directions, tmin, tmax, ray_mask, exclude=exclude, tile=2048,
-                    tblk=scene.kernel_tblk, local=scene.tris_local,
-                    precision=_PREC_ANY,
-                )
-            return pallas_intersect_any_flat(
-                scene.tris_packed, scene.tri_bounds, origins, directions,
-                tmin, tmax, ray_mask, exclude=exclude, tile=2048,
-                tblk=scene.kernel_tblk,
-            )
-        if _use_residual(scene):
-            if _tuned.get_bool("shadow_single", False):
-                return _any_wl_single(
-                    scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude
-                )
-            return _any_twopass(
-                scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude
-            )
-        starts = _tile_starts(scene, origins)
-        return _run_super_any(
-            scene, use_mxu, origins, directions, tmin, tmax, ray_mask, exclude, starts
-        )
     if scene.bvh is not None:
         from strelka_tpu.ops.bvh import intersect_bvh
 

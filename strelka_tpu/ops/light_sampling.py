@@ -4,7 +4,7 @@ Light types: 0 rect, 1 disc, 2 sphere, 3 distant. All vectors are
 component-major Vec3 (see ops/vec.py). Per-ray gathered light parameters:
 four corner Vec3s (p0..p3), color/normal Vec3, type [N], half_angle [N].
 Branches become masked selects — every ray computes every light-type formula
-(4 cheap closed forms) and picks by type, the divergence-free TPU analog of
+(4 cheap closed forms) and picks by type, the divergence-free analog of
 the reference's switch (Lights.h:245-362).
 """
 

@@ -10,8 +10,8 @@ Morton-coded per-pixel sample index:
 
 NUM_DIMENSIONS == 10, so (Dim + depth*10) % 5 == Dim % 5: the bounce depth
 only enters through the scramble seed. All functions here operate on uint32
-jnp arrays of any shape and are jit/vmap-safe (pure elementwise bit math on
-the VPU, no gathers).
+jnp arrays of any shape and are jit/vmap-safe (pure elementwise bit math,
+no gathers).
 """
 
 from __future__ import annotations
@@ -146,7 +146,7 @@ def sobol_uint(index: jnp.ndarray, dim: int) -> jnp.ndarray:
     """XOR-fold of direction numbers selected by index bits (RandomSampler.h:166-175).
 
     ``dim`` must be a static Python int in [0, 5). The 32-step loop is
-    unrolled at trace time into pure VPU bit ops (no gathers).
+    unrolled at trace time into pure elementwise bit ops (no gathers).
     """
     index = _u32(index)
     x = jnp.zeros_like(index)
@@ -205,7 +205,7 @@ def random_dims(sample_idx: jnp.ndarray, depth, dims) -> jnp.ndarray:
 
     Bit-identical to stacking random_dim per dim, but the per-depth Owen
     scramble of the sample index is computed ONCE and the direction-number
-    fold is shared across dims (~4x fewer VPU ops than D separate draws).
+    fold is shared across dims (~4x fewer ops than D separate draws).
     """
     dims = tuple(int(d) % 5 for d in dims)
     seed = hash_u32(_u32(SAMPLER_BASE_SEED) + _u32(depth))
@@ -273,64 +273,3 @@ def halton(index: jnp.ndarray, base: int, n_iters: int = 32) -> jnp.ndarray:
         i = (i - digit) // _U32(base)
         f = f * s
     return jnp.clip(result, 0.0, FLOAT_ONE_MINUS_EPS)
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas sampler: the whole 5-dim Owen-Sobol draw in ONE kernel.
-#
-# random_dims traces to ~200 elementwise u32 HLOs; XLA splits them into
-# several fusions with HBM round-trips between them. On the TPU hot path the
-# draw runs as a single Pallas kernel: sample_idx streams through VMEM once
-# and all five dimensions come out together. Bit-identical to random_dims.
-# ---------------------------------------------------------------------------
-
-
-def _random_dims_body(index_row, depth: int, dims: tuple):
-    # per-dim python loop with SCALAR constants only: pallas kernels cannot
-    # capture jnp constant arrays (scalar immediates fold fine)
-    seed = hash_u32(_U32(SAMPLER_BASE_SEED) + _U32(depth))
-    index = nested_uniform_scramble(index_row, seed)
-    rows = []
-    for d in dims:
-        su = sobol_uint(index, d)
-        r = nested_uniform_scramble(su, hash_combine(seed, _U32(d)))
-        # Mosaic has no u32->f32 cast; two exact 16-bit halves round
-        # identically to the direct conversion (hi*2^16 is exact in f32,
-        # the single add rounds-to-nearest like the full cast would)
-        hi = (r >> _U32(16)).astype(jnp.int32).astype(jnp.float32)
-        lo = (r & _U32(0xFFFF)).astype(jnp.int32).astype(jnp.float32)
-        f = (hi * jnp.float32(65536.0) + lo) * jnp.float32(2.0 ** -32)
-        rows.append(jnp.minimum(f, FLOAT_ONE_MINUS_EPS))
-    return jnp.stack(rows)
-
-
-def random_dims_pallas(sample_idx: jnp.ndarray, depth, dims, tile: int = 4096) -> jnp.ndarray:
-    """Pallas-fused random_dims -> [D, N] f32 (falls back off-TPU)."""
-    import functools
-
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if jax.default_backend() == "cpu":
-        return random_dims(sample_idx, depth, dims)
-    dims = tuple(int(d) % 5 for d in dims)
-    n = sample_idx.shape[0]
-    n_pad = ((n + tile - 1) // tile) * tile
-    idx = _u32(sample_idx)
-    if n_pad != n:
-        idx = jnp.concatenate([idx, jnp.zeros(n_pad - n, _U32)])
-    idx = idx.reshape(1, n_pad)
-    depth = int(depth)
-
-    def kernel(idx_ref, out_ref):
-        out_ref[:, :] = _random_dims_body(idx_ref[0, :], depth, dims)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // tile,),
-        in_specs=[pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((len(dims), tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((len(dims), n_pad), jnp.float32),
-    )(idx)
-    return out[:, :n]

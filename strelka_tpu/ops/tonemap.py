@@ -4,7 +4,9 @@ Ports: src/render/optix/postprocessing/Tonemappers.cu (Reinhard, ACES fitted,
 ACES filmic, gamma), postprocessing/Utils.h (LDR-lerp accumulation helpers),
 and the photographic exposure computation (OptixRender.cpp:956-987).
 
-All functions take/return [..., 3] float32 arrays and are jit-safe.
+All functions take/return [..., 3] float32 arrays and are jit-safe. The
+colour matrices are applied as explicit weighted sums, not as dot products:
+a float32 dot may be lowered to a reduced-precision (TF32) matrix unit.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ class ToneMapperType:
 
 def calc_luminance(color: jnp.ndarray) -> jnp.ndarray:
     """Tonemappers.cu:6-9."""
-    return jnp.einsum("...c,c->...", color, jnp.array([0.299, 0.587, 0.114], jnp.float32))
+    return 0.299 * color[..., 0] + 0.587 * color[..., 1] + 0.114 * color[..., 2]
 
 
 def reinhard(color: jnp.ndarray) -> jnp.ndarray:
@@ -56,14 +58,25 @@ _ACES_OUTPUT = np.array(
 )
 
 
+def _mat3(m: np.ndarray, c) -> list:
+    """3x3 matrix times the colour whose channels are c[0], c[1], c[2]."""
+    return [
+        float(m[i, 0]) * c[0] + float(m[i, 1]) * c[1] + float(m[i, 2]) * c[2]
+        for i in range(3)
+    ]
+
+
+def _aces_rrt_odt(c):
+    a = c * (c + 0.0245786) - 0.000090537
+    b = c * (0.983729 * c + 0.4329510) + 0.238081
+    return a / b
+
+
 def aces_fitted(color: jnp.ndarray) -> jnp.ndarray:
     """Stephen Hill ACES fit (Tonemappers.cu:52-85). Matrices verbatim."""
-    color = jnp.einsum("ij,...j->...i", jnp.asarray(_ACES_INPUT), color)
-    a = color * (color + 0.0245786) - 0.000090537
-    b = color * (0.983729 * color + 0.4329510) + 0.238081
-    color = a / b
-    color = jnp.einsum("ij,...j->...i", jnp.asarray(_ACES_OUTPUT), color)
-    return jnp.clip(color, 0.0, 1.0)
+    c = _mat3(_ACES_INPUT, [color[..., k] for k in range(3)])
+    c = _mat3(_ACES_OUTPUT, [_aces_rrt_odt(x) for x in c])
+    return jnp.clip(jnp.stack(c, axis=-1), 0.0, 1.0)
 
 
 def gamma_correction(color: jnp.ndarray, gamma: float) -> jnp.ndarray:
@@ -137,12 +150,9 @@ def apply_tonemap_planar(image: jnp.ndarray, tonemapper_type: int, exposure, gam
         image = c / (_lum_planar(c)[None] + 1.0)
     elif tonemapper_type == ToneMapperType.eACES:
         c = image * exposure
-        a_in = jnp.asarray(_ACES_INPUT)
-        c = jnp.einsum("ij,jhw->ihw", a_in, c)
-        num = c * (c + 0.0245786) - 0.000090537
-        den = c * (0.983729 * c + 0.4329510) + 0.238081
-        c = num / den
-        image = jnp.clip(jnp.einsum("ij,jhw->ihw", jnp.asarray(_ACES_OUTPUT), c), 0.0, 1.0)
+        c = _mat3(_ACES_INPUT, [c[0], c[1], c[2]])
+        c = _mat3(_ACES_OUTPUT, [_aces_rrt_odt(x) for x in c])
+        image = jnp.clip(jnp.stack(c), 0.0, 1.0)
     elif tonemapper_type == ToneMapperType.eFilmic:
         x = image * exposure
         image = jnp.clip((x * (2.51 * x + 0.03)) / (x * (2.43 * x + 0.59) + 0.14), 0.0, 1.0)

@@ -1,10 +1,8 @@
-"""Component-major 3-vectors (structure-of-arrays) for TPU device code.
+"""Component-major 3-vectors (structure-of-arrays) for device code.
 
-TPU vector registers are (8 sublanes x 128 lanes) tiles over the LAST TWO
-array dims. A [N, 3] vector array tiles its minor dim 3 into 128 lanes —
-2.3% lane utilization; profiling showed the integrator's mega-fusions
-iterating [*, 3]-minor arrays at ~180M estimated cycles. Storing vectors as
-three separate [N] arrays (this module) keeps every op full-lane.
+A [N, 3] vector array has a minor dimension of 3, so every elementwise op
+over it reads strided, padded rows. Storing vectors as three separate [N]
+arrays (this module) keeps every op a contiguous, coalesced [N] stream.
 
 Vec3 is a NamedTuple(x, y, z) of same-shaped arrays with the usual algebra.
 Convert at module boundaries only: `from_rows` ([N,3] -> Vec3) and `to_rows`
@@ -84,9 +82,8 @@ def to_rows(v: Vec3):
 def gather_rows(table, idx) -> Vec3:
     """Gather rows of a [T, 3] table -> Vec3 of [N].
 
-    ONE row gather (XLA TPU vectorizes whole-row slices) + three column
-    slices; per-component element gathers (table[idx, k]) lower to serial
-    scalar gathers (~100x slower — measured 25ms vs 0.2ms at N=1M).
+    ONE row gather of whole rows + three column slices, instead of three
+    per-component element gathers (table[idx, k]).
     """
     rows = gather_rows_t(table, idx)
     return Vec3(rows[0], rows[1], rows[2])
@@ -95,9 +92,8 @@ def gather_rows(table, idx) -> Vec3:
 def gather_rows_t(table, idx):
     """Gather rows of a [T, F] table and transpose -> [F, N].
 
-    The gather output [N, F] has minor dim F (pads F->128 lanes, so EVERY
-    consumer re-reads a 128/F-x inflated buffer). Transposing once makes all
-    downstream component slices lane-contiguous [N] rows.
+    The gather output [N, F] has minor dim F; transposing once makes all
+    downstream component slices contiguous [N] rows.
     """
     return table[idx].T
 
@@ -179,9 +175,8 @@ def matvec(m, v: Vec3, w=None) -> Vec3:
 
 
 def octant(d: Vec3) -> jnp.ndarray:
-    """Direction octant id [0, 8): bit c set iff component c is positive.
-    The ONE encoding shared by the wavefront sort key and the phase-2
-    octant sub-grouping — keep them in lockstep."""
+    """Direction octant id [0, 8): bit c set iff component c is positive
+    (the low bits of the wavefront sort key)."""
     return (
         (d.x > 0).astype(jnp.int32)
         | ((d.y > 0).astype(jnp.int32) << 1)

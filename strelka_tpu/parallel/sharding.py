@@ -1,8 +1,9 @@
 """Multi-chip execution: pixel-row sharding over a jax.sharding.Mesh.
 
-The reference has NO multi-GPU path (SURVEY.md §2.4) — this is the TPU-native
-scaling axis prescribed by BASELINE.json: tile pixel rows across a slice,
-keep per-chip accumulators local, and let the host gather the framebuffer.
+The reference has NO multi-GPU path (SURVEY.md §2.4) — this is the scaling
+axis of this build: tile pixel rows across the cards of one host, keep
+per-card accumulators local, and let the host gather the framebuffer. The
+mesh is a flat list of devices: every card reaches every other alike.
 
 The launch runs under jax.shard_map: each chip executes the COMPLETE
 wavefront loop on its own horizontal band, with the band's global row offset

@@ -1,4 +1,4 @@
-"""Render backend — TPU equivalent of OptiXRender/MetalRender (layer L1).
+"""Render backend — JAX equivalent of OptiXRender/MetalRender (layer L1).
 
 Mirrors the per-frame flow of OptiXRender::render (OptixRender.cpp:874-1057):
 frame-0 device-scene build (the GAS/IAS + SBT analog is build_device_scene),
@@ -15,7 +15,7 @@ jax.sharding.Mesh (see strelka_tpu.parallel).
 from __future__ import annotations
 
 import enum
-import functools
+import time
 from typing import Dict, Optional, Tuple
 
 import jax
@@ -63,6 +63,10 @@ class Render:
     def create_buffer(self, desc: BufferDesc) -> Buffer:
         return Buffer(desc)
 
+    def device_scene(self):
+        """The built device scene (None before the first frame)."""
+        return None
+
 
 # Settings keys that reset accumulation when changed (OptixRender.cpp:910-934)
 _WATCHED_KEYS = (
@@ -93,6 +97,10 @@ class TpuRender(Render):
         self._mesh = None
         self._use_sharding = use_sharding
         self.material_manager = MaterialManager()
+        self.last_scene_build_s = 0.0  # host+upload seconds of the last device-scene build
+
+    def device_scene(self):
+        return self._device_scene
 
     # ------------------------------------------------------------------
     def init(self) -> None:
@@ -189,7 +197,11 @@ class TpuRender(Render):
 
         # frame-0 / dirty scene: rebuild device arrays (GAS/SBT analog)
         if self._device_scene is None or scene.dirty:
-            self._device_scene = build_device_scene(scene, self.material_manager)
+            t0 = time.perf_counter()
+            self._device_scene = jax.block_until_ready(
+                build_device_scene(scene, self.material_manager)
+            )
+            self.last_scene_build_s = time.perf_counter() - t0
             scene.dirty = False
             if not self._resume:
                 ctx.subframe_index = 0

@@ -9,9 +9,9 @@ and BSDF-sampled rays can hit the emitter.
 
 Unlike the reference we keep vertex attributes UNPACKED as float32 arrays
 (positions [N,3], normals [N,3], tangents [N,3], uvs [N,2]) — the 10:10:12 /
-16:16 packing (scene.h:80-89) is a GPU bandwidth optimization that TPU HBM
-layouts do not benefit from; the packing/unpacking helpers live in
-loaders for file-format parity instead.
+16:16 packing (scene.h:80-89) happens once, in the device attribute table
+(render/device_scene.py); the packing/unpacking helpers live in loaders for
+file-format parity.
 """
 
 from __future__ import annotations

@@ -86,9 +86,6 @@ def make_default_settings(width: int = 1024, height: int = 768) -> SettingsManag
     s.set("render/pt/dev/shadowRayTmin", 0.0)
     s.set("render/pt/dev/materialRayTmin", 0.0)
     s.set("render/bgColor", (0.0, 0.0, 0.0))
-    # TPU-specific knobs (no reference equivalent)
-    s.set("render/tpu/shardAxis", "y")  # pixel-row sharding over the device mesh
-    s.set("render/tpu/donateAccum", True)
     return s
 
 

@@ -1,6 +1,6 @@
 """Texture system: host-side manager + device atlas with filtered sampling.
 
-The TPU replacement for CUDA texture objects (OptixRender::loadTextureFromFile
+The replacement for CUDA texture objects (OptixRender::loadTextureFromFile
 stb->cudaArray + filtered tex objects, OptixRender.cpp:1191-1268, and the MDL
 texture runtime tex_lookup_float4_2d, texture_support_cuda.h:287-528).
 
@@ -10,8 +10,7 @@ every (texture, level) image is shelf-packed into ONE [H, W, 4] sheet. A
 per-rect row table maps rect ids to sheet regions; rect id == texture id for
 level 0, and a texture's levels 1..k occupy CONSECUTIVE rect ids starting at
 its mip_base column — so level selection is pure arithmetic on one fat row
-gather (per-lane 1D gathers are ~100x slower on TPU than a fat [R, C] row
-gather; see ops/vec.gather_rows_t). Sampling is a branchless bilinear gather
+gather (see ops/vec.gather_rows_t). Sampling is a branchless bilinear gather
 with per-texture wrap OR clamp addressing, batched over the whole wavefront;
 trilinear adds a second level and one blend, with the level chosen from a
 ray-cone footprint (see integrator._apply_textures).
@@ -87,6 +86,28 @@ def _resize_bilinear(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return (top * (1 - ty) + bot * ty).astype(np.float32)
 
 
+def _read_rgba(path: str) -> np.ndarray:
+    """Image file -> [H,W,4] f32 in [0, 1]. PNG is decoded by the stdlib
+    codec (utils/image.py); other formats (JPEG) need Pillow, and a missing
+    Pillow is an error that names the file, never an untextured render."""
+    if path.lower().endswith(".png"):
+        from strelka_tpu.utils.image import read_png_u8
+
+        u8 = read_png_u8(path)
+    else:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError(f"texture {path}: reading this format needs Pillow") from e
+        u8 = np.asarray(Image.open(path).convert("RGBA"))
+    c = u8.shape[-1]
+    if c < 3:  # grey (+ alpha) -> RGB (+ alpha)
+        u8 = np.concatenate([np.repeat(u8[..., :1], 3, axis=-1), u8[..., 1:]], axis=-1)
+    if u8.shape[-1] == 3:
+        u8 = np.concatenate([u8, np.full(u8.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    return u8.astype(np.float32) / 255.0
+
+
 def _srgb_encode(rgb: np.ndarray) -> np.ndarray:
     return np.where(
         rgb <= 0.0031308, rgb * 12.92, 1.055 * np.maximum(rgb, 1e-12) ** (1 / 2.4) - 0.055
@@ -122,18 +143,11 @@ class TextureManager:
         if not os.path.exists(full):
             log.warning("Texture not found: {}", path)
             return -1
-        try:
-            from PIL import Image
-
-            img = Image.open(full).convert("RGBA")
-        except Exception as e:  # noqa: BLE001
-            log.warning("Texture load failed for {}: {}", path, e)
-            return -1
-        w, h = img.size
+        arr = _read_rgba(full)
+        h, w = arr.shape[:2]
         if max(w, h) > self.max_dim:
             s = self.max_dim / max(w, h)
-            img = img.resize((max(1, int(w * s)), max(1, int(h * s))), Image.BILINEAR)
-        arr = np.asarray(img, np.float32) / 255.0
+            arr = _resize_bilinear(arr, max(1, int(h * s)), max(1, int(w * s)))
         if srgb:
             rgb = arr[..., :3]
             # exact sRGB EOTF (cuda/helpers.h toSRGB inverse)
@@ -166,7 +180,7 @@ class TextureManager:
         """Register an in-memory [D,H,W,3|4] float volume as a texture_3d
         (tex_lookup_float4_3d, texture_support_cuda.h:433-463).
 
-        TPU shape: the D slices become D consecutive level-0 rects in the
+        Layout: the D slices become D consecutive level-0 rects in the
         one 2D sheet; trilinear-in-w = two bilinear slice samples + a lerp
         (sample_3d). Returns the head texture id."""
         v = np.asarray(vol, np.float32)
@@ -386,8 +400,8 @@ def _sample_rect_rows_stochastic(atlas: TextureAtlas, r, uv, rx, ry):
     """ONE-texel stochastic bilinear: picks the x1/y1 neighbor with
     probability equal to its filter weight (rx, ry: [N] uniforms), so
     E[result] == _sample_rect_rows exactly (decode is per-texel in both).
-    1 sheet gather instead of 4 — the TPU path's gathers are the texture
-    pipeline's entire cost, and the variance folds into path-tracing noise."""
+    1 sheet gather instead of 4 — gathers are the texture pipeline's
+    entire cost, and the variance folds into path-tracing noise."""
     w, h = r[RC_W], r[RC_H]
     xb, yb, tx, ty, addr = _texel_setup(r, uv)
     xi = addr(xb + (rx < tx).astype(xb.dtype), w)
@@ -449,7 +463,7 @@ def sample_trilinear_stochastic(atlas: TextureAtlas, tex_id, uv, lod_uv, rnd3):
     E[result] == sample_trilinear while touching 1 sheet texel per lane
     instead of 8 and gathering 1 rect-row set instead of 3.
 
-    This is the default filtered-lookup path on TPU: per-lane HBM gathers
+    This is the integrator's default filtered-lookup path: per-lane gathers
     are ~the whole cost of the reference's hardware tex fetch here
     (texture_support_cuda.h:287-528 reads filtered cudaArray for free), and
     a path tracer re-draws every lookup each subframe — filter variance

@@ -1,10 +1,10 @@
-"""Tracing/profiling subsystem (SURVEY.md §5 parity + TPU-native additions).
+"""Tracing/profiling subsystem (SURVEY.md §5 parity + device traces).
 
 The reference measures wall-clock frame time for the window title
 (app/main.cpp:368-404) and uses TfStopwatch/HD_TRACE in the Hydra path.
 Here: FrameStats keeps the same ms/spp counters plus rolling averages and a
 rays/s estimate, and device_trace() wraps jax.profiler for on-device
-XLA/Pallas op timelines (readable with tensorboard or the bundled
+XLA op timelines (readable with tensorboard or the bundled
 summarize_trace parser).
 """
 

@@ -1,4 +1,4 @@
-"""Manual smoke render (CPU): python tests/smoke_cornell.py [W H spp]"""
+"""Manual smoke render (CPU; --gpu for the default device): python tests/smoke_cornell.py [W H spp] [--png]"""
 
 import os
 import sys
@@ -7,7 +7,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import time

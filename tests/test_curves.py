@@ -149,156 +149,6 @@ def test_hair_render_end_to_end():
     assert (img[2] > img[0]).any()
 
 
-def test_pallas_cone_kernel_matches_sweep():
-    """Pallas cone kernel (interpret) == jnp dense sweep on random curves."""
-    import jax.numpy as jnp
-    from strelka_tpu.ops.curves import (
-        FlatCones,
-        cone_hit_to_seg_u,
-        intersect_curves_closest,
-        morton_sort_cones,
-        pack_cones,
-        pallas_intersect_cones,
-    )
-
-    rng = np.random.default_rng(11)
-    m = 300
-    a = rng.uniform(-5, 5, (m, 3)).astype(np.float32)
-    b = a + rng.normal(0, 0.5, (m, 3)).astype(np.float32)
-    ra = rng.uniform(0.02, 0.2, m).astype(np.float32)
-    rb = rng.uniform(0.02, 0.2, m).astype(np.float32)
-    cones = FlatCones(
-        a=jnp.asarray(a), b=jnp.asarray(b), ra=jnp.asarray(ra), rb=jnp.asarray(rb),
-        seg_id=jnp.arange(m, dtype=jnp.int32),
-        u0=jnp.zeros(m), u1=jnp.ones(m),
-    )
-    perm = morton_sort_cones(cones)
-    cones = FlatCones(*[jnp.asarray(np.asarray(f)[perm]) for f in cones])
-    packed, bounds = pack_cones(cones, tblk=128, super_=2)
-
-    n = 400
-    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = np.zeros(n, np.float32)
-    tmax = np.full(n, 1e16, np.float32)
-
-    t, cone = pallas_intersect_cones(
-        packed, bounds, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
-        jnp.asarray(tmax), tile=256, tblk=128, super_=2, interpret=True,
-    )
-    hit = cone_hit_to_seg_u(cones, jnp.asarray(o), jnp.asarray(d), t, cone)
-    ref = intersect_curves_closest(cones, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), jnp.asarray(tmax))
-    np.testing.assert_array_equal(np.asarray(hit.seg) >= 0, np.asarray(ref.seg) >= 0)
-    hits = np.asarray(ref.seg) >= 0
-    np.testing.assert_allclose(np.asarray(hit.t)[hits], np.asarray(ref.t)[hits], rtol=1e-4)
-    np.testing.assert_array_equal(np.asarray(hit.seg)[hits], np.asarray(ref.seg)[hits])
-    np.testing.assert_allclose(np.asarray(hit.u)[hits], np.asarray(ref.u)[hits], atol=2e-3)
-    # any-hit variant agrees with closest-derived occlusion
-    occ = pallas_intersect_cones(
-        packed, bounds, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
-        jnp.full(n, 8.0, jnp.float32), tile=256, tblk=128, super_=2, interpret=True, any_hit=True,
-    )
-    ref2 = intersect_curves_closest(cones, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), jnp.full(n, 8.0, jnp.float32))
-    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref2.seg) >= 0)
-
-
-def test_cone_twopass_matches_rect():
-    """Cone residual two-pass (K-nearest prime -> open -> compact -> wl) ==
-    the full rectangular sweep, closest and any-hit, in interpret mode."""
-    import functools
-
-    import jax.numpy as jnp
-
-    import strelka_tpu.ops.curves as C
-    import strelka_tpu.ops.pallas_intersect as PI
-    from strelka_tpu.ops.curves import FlatCones, morton_sort_cones, pack_cones
-
-    rng = np.random.default_rng(41)
-    m = 2048  # 8 superblocks at tblk=128/super_=2
-    a = rng.uniform(-5, 5, (m, 3)).astype(np.float32)
-    b = a + rng.normal(0, 0.4, (m, 3)).astype(np.float32)
-    cones = FlatCones(
-        a=jnp.asarray(a), b=jnp.asarray(b),
-        ra=jnp.asarray(rng.uniform(0.02, 0.15, m).astype(np.float32)),
-        rb=jnp.asarray(rng.uniform(0.02, 0.15, m).astype(np.float32)),
-        seg_id=jnp.arange(m, dtype=jnp.int32),
-        u0=jnp.zeros(m), u1=jnp.ones(m),
-    )
-    perm = morton_sort_cones(cones)
-    cones = FlatCones(*[jnp.asarray(np.asarray(f)[perm]) for f in cones])
-    packed, bounds = pack_cones(cones, tblk=128, super_=2)
-
-    class _S:
-        cones_packed = packed
-        cone_bounds = bounds
-
-    n = 512
-    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = jnp.zeros(n, jnp.float32)
-    tmax = np.full(n, 1e16, np.float32)
-    tmax[256:384] = 0.0  # dead lanes
-    tmax = jnp.asarray(tmax)
-
-    orig_cones = C.pallas_intersect_cones
-    orig_wl = C.pallas_intersect_cones_wl
-    orig_fk = C.pallas_intersect_cones_fusedk
-    orig_ow = PI.pallas_open_w
-    C.pallas_intersect_cones = functools.partial(orig_cones, interpret=True)
-    C.pallas_intersect_cones_wl = functools.partial(orig_wl, interpret=True)
-    C.pallas_intersect_cones_fusedk = functools.partial(orig_fk, interpret=True)
-    PI.pallas_open_w = functools.partial(orig_ow, interpret=True)
-    try:
-        t_r, cone_r = orig_cones(
-            packed, bounds, jnp.asarray(o), jnp.asarray(d), tmin, tmax,
-            tile=256, tblk=128, super_=2, interpret=True,
-        )
-        t_t, cone_t = C._cones_twopass(
-            _S(), jnp.asarray(o), jnp.asarray(d), tmin, tmax, any_hit=False,
-            tile=256, tblk=128, super_=2, k=2,
-        )
-        np.testing.assert_array_equal(np.asarray(cone_t), np.asarray(cone_r))
-        hits = np.asarray(cone_r) >= 0
-        np.testing.assert_array_equal(np.asarray(t_t)[hits], np.asarray(t_r)[hits])
-
-        occ_r = orig_cones(
-            packed, bounds, jnp.asarray(o), jnp.asarray(d), tmin,
-            jnp.where(tmax > 0, 8.0, 0.0), tile=256, tblk=128, super_=2,
-            interpret=True, any_hit=True,
-        )
-        occ_t = C._cones_twopass(
-            _S(), jnp.asarray(o), jnp.asarray(d), tmin,
-            jnp.where(tmax > 0, 8.0, 0.0), any_hit=True,
-            tile=256, tblk=128, super_=2, k=2,
-        )
-        np.testing.assert_array_equal(np.asarray(occ_t), np.asarray(occ_r))
-
-        # fused-K phase-1 kernel == rect sweep over the same order table
-        from strelka_tpu.ops.pallas_intersect import tile_sweep_order_k
-        from strelka_tpu.ops.vec import from_rows
-
-        sbounds = C._cone_super_bounds(bounds, 2)
-        order_k, r2t, d2 = tile_sweep_order_k(from_rows(jnp.asarray(o)), sbounds, 256, 3)
-        t_fk, cone_fk, open_fk = orig_fk(
-            packed, order_k, sbounds, d2, r2t, jnp.asarray(o), jnp.asarray(d),
-            tmin, tmax, tile=256, tblk=128, super_=2, interpret=True,
-        )
-        t_rk, cone_rk = orig_cones(
-            packed, bounds, jnp.asarray(o), jnp.asarray(d), tmin, tmax,
-            tile=256, tblk=128, super_=2, starts=order_k, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(cone_fk), np.asarray(cone_rk))
-        hk = np.asarray(cone_rk) >= 0
-        np.testing.assert_array_equal(np.asarray(t_fk)[hk], np.asarray(t_rk)[hk])
-    finally:
-        C.pallas_intersect_cones = orig_cones
-        C.pallas_intersect_cones_wl = orig_wl
-        C.pallas_intersect_cones_fusedk = orig_fk
-        PI.pallas_open_w = orig_ow
-
-
 def _curved_curve(radius=0.15):
     """A genuinely curved cubic (arc bending in +y) for refinement tests."""
     p = np.array(

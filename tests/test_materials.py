@@ -1,6 +1,6 @@
 """Material pipeline tests — the reference's test_materialmanager coverage
 (mtlx codegen + MDL module compile, tests/materialmanager/
-test_materialmanager.cpp:14-161) re-targeted at the TPU parameter tables."""
+test_materialmanager.cpp:14-161) re-targeted at the dense parameter tables."""
 
 import numpy as np
 import pytest

@@ -2,7 +2,7 @@
 
 Reference capability: the MDL SDK evaluates computed parameter defaults and
 nested function calls during class compilation with constant folding
-(mdlMaterialCompiler.cpp:93-115); the TPU build folds the same constant
+(mdlMaterialCompiler.cpp:93-115); this build folds the same constant
 subset onto the uber-BSDF param table at load time."""
 
 import os

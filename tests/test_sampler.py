@@ -177,3 +177,21 @@ def test_uniform_hash_statistics_and_decorrelation():
     # decorrelated from sobol dim 0 at the same depth
     s0 = np.asarray(S.random_dims(idx, 1, (0,)))[0]
     assert abs(np.corrcoef(u, s0)[0, 1]) < 0.02
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_numpy_reference_matches_random_dims_and_oracle(depth):
+    """The uint32 numpy sampler reference (ops/reference.py, used by the
+    on-card check) is bit-exact against random_dims and the per-element
+    Python oracle above."""
+    from strelka_tpu.ops import reference as R
+
+    rng = np.random.default_rng(depth)
+    idx = rng.integers(0, 2**32, 512, dtype=np.uint64).astype(np.uint32)
+    dims = (0, 1, 2, 3, 4)
+    ref = R.random_dims(idx, depth, dims, S._SB_MATRIX)
+    got = np.asarray(S.random_dims(jnp.asarray(idx), depth, dims))
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    for k in range(0, 512, 97):
+        for dim in dims:
+            assert ref[dim, k] == np.float32(_sobol_scramble(int(idx[k]), dim, 52 + depth))
